@@ -3,13 +3,16 @@
     python3 chip_smoke.py
 
 Builds the SIM1 CUDA kernel from fv3jedi_lm_tpu_torch/csrc/sim1.cu,
-checks it against its plain PyTorch version on the card, checks the port
-on the GPU against the port on the CPU at a small size, then runs the
-nonhydrostatic trajectory step (LinearModel.run_nl) at c96L72 float32 and
-checks that every SIM1 call of that run went through the kernel.  Each
-phase raises on failure.  The last two lines of standard output are a
-JSON line describing the kernels and a JSON status line.  Without a CUDA
-device the script exits non-zero and prints no result.  It imports no JAX.
+checks it against its plain PyTorch version on the card at the shapes of
+tests/test_torch_cuda.py and times it (with its copy-only and solve-only
+parts, and the tile sizes around its plan), checks the port on the GPU
+against the port on the CPU at a small size, then runs the nonhydrostatic
+trajectory step (LinearModel.run_nl) at c96L72 float32, checks that every
+SIM1 call of that run went through the kernel, and profiles one more step
+to find the kernel's launches in the trace.  Each phase raises on failure.
+The last two lines of standard output are a JSON line describing the
+kernels and a JSON status line.  Without a CUDA device the script exits
+non-zero and prints no result.  It imports neither JAX nor the JAX package.
 """
 
 from __future__ import annotations
@@ -22,6 +25,29 @@ import time
 import numpy as np
 import torch
 
+#: c12L10 nonhydrostatic, the configuration of tests/test_torch_step_nl.py
+SMALL_KW = dict(npx=13, npy=13, npz=10, n_split=2, k_split=1,
+                d2_bg_k1=0.2, d2_bg_k2=0.1, n_sponge=3, hydrostatic=False)
+#: c96L72 nonhydrostatic float32, the NH rung of bench.py (bench.py:174-180)
+FULL_KW = dict(npx=97, npy=97, npz=72, n_split=6, k_split=1,
+               d2_bg_k1=0.2, d2_bg_k2=0.1, n_sponge=6, hydrostatic=False,
+               dtype="float32")
+FULL_DT = 900.0
+#: SIM1 at c96L72: 72 levels, 6 faces of 102 x 102 padded columns
+KM, B_FULL = 72, 6 * 102 * 102
+#: (dtype, km, B) of the kernel check, as tests/test_torch_cuda.py
+KERNEL_CASES = ([("float32", KM, B_FULL), ("float32", KM, 4096),
+                 ("float64", 12, 200)]
+                + [(dtype, km, ncol) for dtype in ("float32", "float64")
+                   for km in (2, 10, 72, 127) for ncol in (1004, 1001, 5)])
+#: floating-point operations of SIM1 per level of a column, counting each
+#: +, -, *, /, max, exp and log of core/nh_core.sim1_solver once
+SIM1_OPS_PER_LEVEL = 62
+#: one H100 SXM (NVIDIA's data sheet): HBM rate, float32 rate outside the
+#: tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+
 
 def _card():
     name = torch.cuda.get_device_name(0)
@@ -33,8 +59,8 @@ def _card():
 
 
 def _sim1_inputs(km, ncol, seed, dtype, device):
-    """Random but physical column inputs (as tests/test_pallas_sim1.py)."""
-    from fv3jedi_lm_tpu.constants import GRAV, RGAS
+    """Random but physical column inputs (as tests/test_torch_cuda.py)."""
+    from fv3jedi_lm_tpu_torch.constants import GRAV, RGAS
 
     rng = np.random.default_rng(seed)
     pe_ref = np.linspace(100.0, 1.0e5, km + 1)
@@ -51,8 +77,30 @@ def _sim1_inputs(km, ncol, seed, dtype, device):
                  for x in (dm2, pt2, pm2, pem, w2, dz2, ws))
 
 
-def _time_ms(fn, n=25):
-    """Median device time of fn() over n calls, by CUDA events."""
+def _time_ms(fn, batches=7, batch=20):
+    """Device time of one fn() call by CUDA events around `batch`
+    back-to-back calls, median over `batches`: the host's cost of issuing
+    a call is hidden behind the device's work when it is the smaller."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(batches):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(batch):
+            fn()
+        end.record()
+        end.synchronize()
+        ts.append(start.elapsed_time(end) / batch)
+    return float(np.median(ts))
+
+
+def _time_single_ms(fn, n=25):
+    """Median of n single calls, each between its own CUDA events (how the
+    first CUDA version of SIM1 was timed): includes the host's issue time
+    where it exceeds the device's."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -66,6 +114,17 @@ def _time_ms(fn, n=25):
         end.synchronize()
         ts.append(start.elapsed_time(end))
     return float(np.median(ts))
+
+
+def sim1_bound_ms(km, ncol, itemsize):
+    """The least time one H100 could take for SIM1 on (km, ncol) columns,
+    and what bounds it: each input read once ((6 km + 2) values a column)
+    and each output written once ((3 km + 1)) at the HBM rate, against
+    SIM1_OPS_PER_LEVEL operations per level at the float32 rate."""
+    byte_s = (9 * km + 3) * ncol * itemsize / HBM_BYTES_PER_S
+    ops_s = SIM1_OPS_PER_LEVEL * km * ncol / F32_OPS_PER_S
+    return 1e3 * max(byte_s, ops_s), ("bytes" if byte_s >= ops_s
+                                      else "operations")
 
 
 def _bump(lm, amp=3.0):
@@ -99,66 +158,87 @@ def phase_build():
 
 
 def phase_kernel(card):
-    """Kernel vs plain on the card; returns the kernel's JSON record."""
-    from fv3jedi_lm_tpu.constants import KAPPA
+    """Kernel vs plain on the card at every case of KERNEL_CASES, then the
+    timings at the main path's shape; returns the kernel's JSON record."""
+    from fv3jedi_lm_tpu_torch.constants import KAPPA
     from fv3jedi_lm_tpu_torch.core.nh_core import sim1_solver
+    from fv3jedi_lm_tpu_torch.ops import cuda_sim1
     from fv3jedi_lm_tpu_torch.ops.cuda_sim1 import sim1_solver_cuda
 
     dev = torch.device("cuda")
-    # float64, small: the tolerance of tests/test_pallas_sim1.py
-    args = _sim1_inputs(12, 200, 0, torch.float64, dev)
-    ref = sim1_solver(30.0, *args, KAPPA, 0.05)
-    got = sim1_solver_cuda(30.0, *args, KAPPA, 0.05)
-    torch.cuda.synchronize()
-    for name, a, b in zip(("pe", "w", "dz"), ref, got):
-        torch.testing.assert_close(b, a, rtol=1e-12, atol=1e-12,
-                                   msg=f"f64 {name}")
-    print("[kernel] f64 (12, 200): pe/w/dz within rtol=atol=1e-12",
-          flush=True)
+    dt = 150.0  # the acoustic step of c96L72: 900 s / n_split 6
+    max_abs_main = None
+    for i, (dtype, km, ncol) in enumerate(KERNEL_CASES):
+        args = _sim1_inputs(km, ncol, i, getattr(torch, dtype), dev)
+        ref = sim1_solver(dt, *args, KAPPA, 0.05)
+        got = sim1_solver_cuda(dt, *args, KAPPA, 0.05)
+        torch.cuda.synchronize()
+        errs = []
+        for name, a, b in zip(("pe", "w", "dz"), ref, got):
+            if not bool(torch.isfinite(b).all()):
+                raise AssertionError(f"kernel {dtype} ({km}, {ncol}) {name}: "
+                                     "non-finite values")
+            errs.append(float((a - b).abs().max()))
+            if dtype == "float32":
+                if not torch.equal(a, b):
+                    raise AssertionError(
+                        f"kernel {dtype} ({km}, {ncol}) {name}: max|d| "
+                        f"{errs[-1]} != 0 (float32 must be bitwise)")
+            else:
+                torch.testing.assert_close(
+                    b, a, rtol=1e-12, atol=1e-12,
+                    msg=f"kernel {dtype} ({km}, {ncol}) {name}")
+        tile, threads, smem = cuda_sim1.plan(km, args[0].element_size())
+        print(f"[kernel] {dtype} ({km}, {ncol}) tile {tile} x {threads} "
+              f"threads, {smem} B shared: max|d| pe/w/dz = "
+              + " ".join(f"{e:.3e}" for e in errs)
+              + (" (bitwise)" if dtype == "float32"
+                 else " (rtol=atol=1e-12)"), flush=True)
+        if (dtype, km, ncol) == ("float32", KM, B_FULL):
+            max_abs_main = max(errs)
 
-    # float32 at the c96L72 shape of the main path
-    km, B = 72, 6 * 102 * 102
-    dt = 150.0
-    args = _sim1_inputs(km, B, 1, torch.float32, dev)
-    ref = sim1_solver(dt, *args, KAPPA, 0.05)
-    got = sim1_solver_cuda(dt, *args, KAPPA, 0.05)
-    torch.cuda.synchronize()
-    max_abs = 0.0
-    for name, a, b in zip(("pe", "w", "dz"), ref, got):
-        if not bool(torch.isfinite(b).all()):
-            raise AssertionError(f"kernel f32 {name}: non-finite values")
-        err = float((a - b).abs().max())
-        rel = err / (float(a.abs().max()) + 1e-6)
-        print(f"[kernel] f32 ({km}, {B}) {name}: max|d|={err:.3e} "
-              f"rel={rel:.3e}", flush=True)
-        if not rel < 1e-5:
-            raise AssertionError(f"kernel f32 {name}: rel {rel} >= 1e-5")
-        max_abs = max(max_abs, err)
+    # timings at the main path's shape, float32
+    args = _sim1_inputs(KM, B_FULL, 0, torch.float32, dev)
     ms = _time_ms(lambda: sim1_solver_cuda(dt, *args, KAPPA, 0.05))
-    plain_ms = _time_ms(lambda: sim1_solver(dt, *args, KAPPA, 0.05))
-    print(f"[kernel] time ({km}, {B}) f32: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms (median of 25, CUDA events; {card[1]})",
-          flush=True)
+    ms_single = _time_single_ms(lambda: sim1_solver_cuda(dt, *args, KAPPA,
+                                                         0.05))
+    copy_ms = _time_ms(lambda: cuda_sim1._launch(dt, args, KAPPA, 0.05,
+                                                 mode=1))
+    solve_ms = _time_ms(lambda: cuda_sim1._launch(dt, args, KAPPA, 0.05,
+                                                  mode=2))
+    plain_ms = _time_ms(lambda: sim1_solver(dt, *args, KAPPA, 0.05),
+                        batches=5, batch=1)
+    bound_ms, bound_by = sim1_bound_ms(KM, B_FULL, 4)
+    tile, threads, _ = cuda_sim1.plan(KM, 4)
+    print(f"[kernel] time ({KM}, {B_FULL}) float32, tile {tile} x "
+          f"{threads}: kernel {ms:.4f} ms (batched; {ms_single:.4f} ms "
+          f"timed one call at a time), copy only {copy_ms:.4f} ms, solve "
+          f"only {solve_ms:.4f} ms, plain {plain_ms:.4f} ms; bound "
+          f"{bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / ms:.1f}% of it "
+          f"({card[1]})", flush=True)
+    for t, th in ((32, 256), (32, 128), (16, 256), (16, 128), (8, 256)):
+        sweep = _time_ms(lambda: cuda_sim1._launch(dt, args, KAPPA, 0.05,
+                                                   tile=t, threads=th))
+        print(f"[kernel] tile {t} x {th} threads: {sweep:.4f} ms",
+              flush=True)
     return dict(name="sim1_solver", route="cuda",
                 source="fv3jedi_lm_tpu_torch/csrc/sim1.cu",
                 replaces="fv3jedi_lm_tpu/ops/pallas_sim1.py:109",
-                launches=None, max_abs_err=max_abs, ms=ms,
-                plain_ms=plain_ms)
-
-
-NH_KW = dict(npx=13, npy=13, npz=10, n_split=2, k_split=1,
-             d2_bg_k1=0.2, d2_bg_k2=0.1, n_sponge=3, hydrostatic=False)
+                launches=None, max_abs_err=max_abs_main, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None, ms_one_call=ms_single, copy_only_ms=copy_ms,
+                solve_only_ms=solve_ms)
 
 
 def phase_small():
     """The port on the GPU (kernel) vs the port on the CPU (plain), c12L10
     float64, one step from the bump state (with humidity); then rest stays
     at rest."""
-    from fv3jedi_lm_tpu.config import DynConfig, LMConfig
+    from fv3jedi_lm_tpu_torch.config import DynConfig, LMConfig
     from fv3jedi_lm_tpu_torch.lm import LinearModel, traj_to_numpy
     from fv3jedi_lm_tpu_torch.ops.cuda_sim1 import sim1_solver_cuda
 
-    cfg = LMConfig(dyn=DynConfig(**NH_KW), dt=450.0)
+    cfg = LMConfig(dyn=DynConfig(**SMALL_KW), dt=450.0)
     outs = {}
     for dev in ("cuda", "cpu"):
         lm = LinearModel.create(cfg, device=dev)
@@ -183,31 +263,29 @@ def phase_small():
     print(f"[small] SIM1 launches in one cuda step_nl: "
           f"{2 * cfg.dyn.n_split} (2 per acoustic substep)", flush=True)
 
-    lm = LinearModel.create(cfg, device="cuda")
+    lm = LinearModel.create(cfg)  # the card, by default
+    if lm.device.type != "cuda":
+        raise AssertionError(f"LinearModel.create defaulted to {lm.device}")
     out = lm.step_nl(lm.rest_traj())
     u = float(out["u"].abs().max())
     w = float(out["w"].abs().max())
     t = float((out["t"] - 280.0).abs().max())
-    print(f"[small] rest: max|u|={u:.3e} max|w|={w:.3e} "
-          f"max|t-280|={t:.3e}", flush=True)
+    print(f"[small] rest (device {lm.device}): max|u|={u:.3e} "
+          f"max|w|={w:.3e} max|t-280|={t:.3e}", flush=True)
     if not (u < 1e-8 and w < 1e-8 and t < 1e-7):
         raise AssertionError("rest state did not stay at rest")
 
 
 def phase_full(card, nt=3):
     """c96L72 NH float32 (the bench.py NH configuration): run_nl over nt
-    steps from rest plus the thermal bump and humidity.  Returns the SIM1
-    launches."""
-    from fv3jedi_lm_tpu.config import DynConfig, LMConfig
+    steps from rest plus the thermal bump and humidity.  Returns the model,
+    the last state and the SIM1 launches of the run."""
+    from fv3jedi_lm_tpu_torch.config import DynConfig, LMConfig
     from fv3jedi_lm_tpu_torch.lm import LinearModel
     from fv3jedi_lm_tpu_torch.ops.cuda_sim1 import sim1_solver_cuda
 
-    cfg = LMConfig(
-        dyn=DynConfig(npx=97, npy=97, npz=72, n_split=6, k_split=1,
-                      d2_bg_k1=0.2, d2_bg_k2=0.1, n_sponge=6,
-                      hydrostatic=False, dtype="float32"),
-        dt=900.0, nt=nt)
-    lm = LinearModel.create(cfg, device="cuda")
+    cfg = LMConfig(dyn=DynConfig(**FULL_KW), dt=FULL_DT, nt=nt)
+    lm = LinearModel.create(cfg)
     tr0 = lm.rest_traj()
     tr0["t"] = tr0["t"] + _bump(lm)
     tr0 = _moisten(lm, tr0)
@@ -230,6 +308,7 @@ def phase_full(card, nt=3):
     trajs = lm.run_nl(tr0)
     launches = sim1_solver_cuda.launches
     peak = torch.cuda.max_memory_allocated()
+    lm.step_nl = step
 
     for i, tr in enumerate(trajs[1:], 1):
         for k in lm.prog_3d:
@@ -251,7 +330,38 @@ def phase_full(card, nt=3):
           + ", ".join(f"{t:.4f}" for t in times[1:])
           + f"; peak device memory {peak / 2**30:.3f} GiB "
           f"({card[0]}; {card[1]})", flush=True)
-    return launches
+    return lm, last, launches
+
+
+def phase_profile(lm, tr):
+    """One more warm c96L72 step under torch.profiler: the SIM1 kernel's
+    events, found by kernel name, must number 2 per acoustic substep;
+    prints their summed device time and the step's kernel time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    want = 2 * lm.cfg.dyn.n_split
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        lm.step_nl(tr)
+        torch.cuda.synchronize()
+    sim1_n, sim1_us, kernel_us = 0, 0.0, 0.0
+    for evt in prof.events():
+        # device events only, without the scopes' ranges mirrored onto the
+        # device timeline (they nest and would count kernels again)
+        if (evt.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(evt, "is_user_annotation", False)):
+            continue
+        kernel_us += evt.device_time_total
+        if "sim1_kernel" in evt.name:
+            sim1_n += 1
+            sim1_us += evt.device_time_total
+    print(f"[profile] c96L72 step: {sim1_n} SIM1 kernel events, "
+          f"{sim1_us / 1e3:.4f} ms of device time in all "
+          f"({sim1_us / max(sim1_n, 1) / 1e3:.4f} ms each); all kernels "
+          f"{kernel_us / 1e3:.3f} ms", flush=True)
+    if sim1_n != want:
+        raise AssertionError(f"profile: {sim1_n} SIM1 kernel events, "
+                             f"expected {want}")
 
 
 def main():
@@ -264,7 +374,8 @@ def main():
     phase_build()
     record = phase_kernel(card)
     phase_small()
-    record["launches"] = phase_full(card)
+    lm, last, record["launches"] = phase_full(card)
+    phase_profile(lm, last)
     print(json.dumps({"kernels": [record]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,21 +1,23 @@
 """fv3jedi_lm_tpu_torch: the PyTorch/CUDA port of fv3jedi_lm_tpu.
 
 The subpackage layout and module names mirror ``fv3jedi_lm_tpu`` so that
-each module's counterpart is found by its path.  The port shares the JAX
-package's NumPy-only modules (``config``, ``constants``, ``grid.metrics``,
-``grid.topology``, ``grid.eta`` ...) and never imports JAX.
+each module's counterpart is found by its path.  The port keeps its own
+copies of the JAX package's NumPy-only modules (``config``, ``constants``,
+``grid.gnomonic``, ``grid.sphere``, ``grid.topology``, ``grid.metrics``,
+``grid.eta``, and ``NG`` here) and imports neither JAX nor the JAX package.
 
 Layout conventions are those of the JAX package: 3-D fields are tensors of
 shape ``(npz, 6, jdim, idim)``, 2-D fields ``(6, jdim, idim)``, every face
 carries an ``NG=3`` halo.  Functions are plain functions on tensors; the
-tensors' device decides where they run.
+tensors' device decides where they run, and ``LinearModel`` puts its grid
+and states on the GPU unless it is given ``device="cpu"``.
 
-This first slice covers the nonhydrostatic trajectory step
+The port so far covers the nonhydrostatic trajectory step
 (``LinearModel.step_nl`` with ``hydrostatic=False``), whose SIM1 vertical
 solver runs as a hand-written CUDA kernel on the GPU
 (``ops/cuda_sim1.py``, ``csrc/sim1.cu``).
 """
 
-from fv3jedi_lm_tpu import NG  # noqa: F401
+NG = 3  # halo width, reference: fv_mp_nlm_mod.F90 `ng` (single value used by the LM)
 
 __version__ = "0.1.0"

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from .. import NG
-from fv3jedi_lm_tpu.constants import GRAV, RGAS
+from ..constants import GRAV, RGAS
 from ..ops.a2b_edge import a2b_ord4
 from ..ops.d_sw import d_sw
 from ..ops.sw_core import F2P, SL, c_sw

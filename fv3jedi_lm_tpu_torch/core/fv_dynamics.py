@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from .. import NG
-from fv3jedi_lm_tpu.constants import GRAV, KAPPA, RGAS, ZVIR
+from ..constants import GRAV, KAPPA, RGAS, ZVIR
 from ..ops import fv_mapz
 from ..ops.sw_core import F2P, SL
 from ..parallel import halo

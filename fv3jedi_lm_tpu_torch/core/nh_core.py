@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from .. import NG
-from fv3jedi_lm_tpu.constants import GRAV, RGAS
+from ..constants import GRAV, RGAS
 from ..ops.cuda_sim1 import sim1_solver_cuda
 from ..ops.sw_core import fill_4corners
 from ..ops.transport import fv_tp_2d

@@ -10,7 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from fv3jedi_lm_tpu.grid.metrics import GridMetrics
+from .metrics import GridMetrics
 
 _NAMES = (
     "dx", "dy", "dxa", "dya", "dxc", "dyc", "area", "area_c",

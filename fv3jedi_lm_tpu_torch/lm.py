@@ -7,8 +7,8 @@ tensors — u (npz,6,ny+1,nx), v (npz,6,ny,nx+1), t/delp/qv/ql/qi/o3/w/delz
 
 This slice ports the nonhydrostatic dynamics-only `step_nl`/`run_nl`; the
 tangent-linear and adjoint steps and the physics come with later slices.
-`traj_from_numpy`/`traj_to_numpy` carry states to and from the JAX
-package (dicts of numpy arrays).
+`traj_from_numpy`/`traj_to_numpy` carry states to and from dicts of numpy
+arrays (the form the JAX package's states take through np.asarray).
 """
 
 from __future__ import annotations
@@ -17,10 +17,10 @@ import numpy as np
 import torch
 
 from . import NG
-from fv3jedi_lm_tpu.config import LMConfig
-from fv3jedi_lm_tpu.constants import GRAV, RGAS
-from fv3jedi_lm_tpu.grid.eta import default_ak_bk
-from fv3jedi_lm_tpu.grid.metrics import build_grid
+from .config import LMConfig
+from .constants import GRAV, RGAS
+from .grid.eta import default_ak_bk
+from .grid.metrics import build_grid
 from .core.fv_dynamics import fv_dynamics
 from .grid.device import to_device
 from .parallel import halo
@@ -34,9 +34,16 @@ _DTYPES = {"float64": torch.float64, "float32": torch.float32}
 
 class LinearModel:
     """Facade object: `create` once per (resolution, config, device), then
-    step.  The grid lives on `device`; every state passed in must too."""
+    step.  The grid lives on `device`, the GPU unless the caller passes
+    `device="cpu"`; every state passed in must live there too."""
 
-    def __init__(self, cfg: LMConfig, device, ak=None, bk=None, big=None):
+    def __init__(self, cfg: LMConfig, device="cuda", ak=None, bk=None,
+                 big=None):
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "LinearModel runs on the GPU by default and this host has no "
+                "CUDA device; pass device=\"cpu\" to run on the CPU")
         cfg = cfg.replace(dyn=cfg.dyn.resolve())
         if cfg.do_phy_trb or cfg.do_phy_mst:
             raise NotImplementedError(
@@ -47,7 +54,7 @@ class LinearModel:
         self.prog_3d = ("u", "v", "t", "delp") + self.tracers
         if not dyn.hydrostatic:
             self.prog_3d = self.prog_3d + ("w", "delz")
-        self.device = torch.device(device)
+        self.device = device
         self.dtype = _DTYPES[dyn.dtype]
         if big is None:
             # halo sentinel for undefined metric lanes: products of the
@@ -65,10 +72,11 @@ class LinearModel:
         self.ptop = float(ak[0])
 
     @classmethod
-    def create(cls, cfg: LMConfig, device, ak=None, bk=None,
+    def create(cls, cfg: LMConfig, device="cuda", ak=None, bk=None,
                big=None) -> "LinearModel":
-        """Reference `create(dt,npx,npy,npz,ptop,ak,bk)`; `device` (e.g.
-        "cuda" or "cpu") is required."""
+        """Reference `create(dt,npx,npy,npz,ptop,ak,bk)`.  The model runs on
+        the GPU; `device="cpu"` is the only way to run it on the CPU, and
+        without a CUDA device a call that names none raises."""
         return cls(cfg, device, ak, bk, big=big)
 
     def _zeros(self, *shape):

@@ -1,19 +1,26 @@
 """The SIM1 CUDA kernel against its plain PyTorch version, on the card.
 
-This file imports no JAX, so it also runs on a GPU host without JAX, from
-the repo root:
+This file imports neither JAX nor the JAX package, so it also runs on a
+GPU host without JAX, from the repo root:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 (`--noconftest`: tests/conftest.py configures JAX).  Without a card its
-test skips.  `sim1_inputs` also feeds the CPU tests of test_torch_sim1.py.
+tests skip.  `sim1_inputs` also feeds the CPU tests of test_torch_sim1.py.
+
+The cases are those of chip_smoke.py's kernel phase: the c96L72 shape of
+the main path, a 4096-column slice of it, a small float64 case, and for
+km = 2, 10, 72 and 127 in both dtypes a ragged B on the 16-byte copy path
+(1004), a ragged B on the element copy path (1001) and a B under one tile
+(5).  float32 must equal the plain version bit for bit (the kernel keeps
+its operation order and rounding); float64 is held to rtol = atol = 1e-12.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from fv3jedi_lm_tpu.constants import GRAV, KAPPA, RGAS
+from fv3jedi_lm_tpu_torch.constants import GRAV, KAPPA, RGAS
 from fv3jedi_lm_tpu_torch.core import nh_core
 from fv3jedi_lm_tpu_torch.ops import cuda_sim1
 
@@ -34,19 +41,28 @@ def sim1_inputs(km, ncol, seed):
     return dm2, pt2, pm2, pem, w2, dz2, ws
 
 
+CASES = ([("float32", 72, 6 * 102 * 102), ("float32", 72, 4096),
+          ("float64", 12, 200)]
+         + [(dtype, km, ncol) for dtype in ("float32", "float64")
+            for km in (2, 10, 72, 127) for ncol in (1004, 1001, 5)])
+
+
 @pytest.mark.cuda
-def test_cuda_kernel_matches_plain_on_card():
+@pytest.mark.parametrize("dtype,km,ncol", CASES)
+def test_cuda_kernel_matches_plain_on_card(dtype, km, ncol):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
-    for dtype, (km, ncol), tol in ((torch.float64, (12, 200), 1e-12),
-                                   (torch.float32, (72, 4096), 1e-5)):
-        args = [torch.as_tensor(a, dtype=dtype, device="cuda")
-                for a in sim1_inputs(km, ncol, 7)]
-        want = nh_core.sim1_solver(30.0, *args, KAPPA, 0.05)
-        before = cuda_sim1.sim1_solver_cuda.launches
-        got = cuda_sim1.sim1_solver_cuda(30.0, *args, KAPPA, 0.05)
-        torch.cuda.synchronize()
-        assert cuda_sim1.sim1_solver_cuda.launches == before + 1
-        for a, b in zip(want, got):
-            rel = float((a - b).abs().max() / (a.abs().max() + 1e-6))
-            assert rel < tol
+    dtype = getattr(torch, dtype)
+    args = [torch.as_tensor(a, dtype=dtype, device="cuda")
+            for a in sim1_inputs(km, ncol, 7)]
+    want = nh_core.sim1_solver(30.0, *args, KAPPA, 0.05)
+    before = cuda_sim1.sim1_solver_cuda.launches
+    got = cuda_sim1.sim1_solver_cuda(30.0, *args, KAPPA, 0.05)
+    torch.cuda.synchronize()
+    assert cuda_sim1.sim1_solver_cuda.launches == before + 1
+    for name, a, b in zip(("pe", "w", "dz"), want, got):
+        if dtype == torch.float32:
+            assert torch.equal(a, b), (name, float((a - b).abs().max()))
+        else:
+            torch.testing.assert_close(b, a, rtol=1e-12, atol=1e-12,
+                                       msg=name)

@@ -18,20 +18,24 @@ import numpy as np
 import pytest
 import torch
 
-from fv3jedi_lm_tpu.config import DynConfig
+from fv3jedi_lm_tpu.config import DynConfig as JaxDynConfig
 from fv3jedi_lm_tpu.core.dyn_core import _kcoef as jax_kcoef
 from fv3jedi_lm_tpu.grid.device import to_device as jax_to_device
-from fv3jedi_lm_tpu.grid.metrics import build_grid
+from fv3jedi_lm_tpu.grid.metrics import build_grid as jax_build_grid
 from fv3jedi_lm_tpu.ops.d_sw import d_sw as jax_d_sw
+from fv3jedi_lm_tpu_torch.config import DynConfig
 from fv3jedi_lm_tpu_torch.core.dyn_core import _kcoef
 from fv3jedi_lm_tpu_torch.grid.device import to_device
+from fv3jedi_lm_tpu_torch.grid.metrics import build_grid
 from fv3jedi_lm_tpu_torch.ops.d_sw import d_sw
 
 torch.set_num_threads(1)
 
 NPX, NPZ, DT = 13, 8, 75.0
-CFG = DynConfig(npx=NPX, npy=NPX, npz=NPZ, d2_bg_k1=0.2, d2_bg_k2=0.1,
-                n_sponge=6, hydrostatic=False)
+D_SW_KW = dict(npx=NPX, npy=NPX, npz=NPZ, d2_bg_k1=0.2, d2_bg_k2=0.1,
+               n_sponge=6, hydrostatic=False)
+CFG = DynConfig(**D_SW_KW)           # the port's
+JAX_CFG = JaxDynConfig(**D_SW_KW)    # the reference's
 OUTPUTS = ("delp", "pt", "u", "v", "w", "divg_d", "divd_b", "cx", "cy",
            "xflux", "yflux", "crx", "cry", "xfx", "yfx", "heat_source")
 
@@ -55,15 +59,16 @@ def _inputs():
 @pytest.fixture(scope="module")
 def outputs():
     gm = build_grid(NPX, big=1.0e30)
+    jgm = jax_build_grid(NPX, big=1.0e30)
     args = _inputs()
     # the level blend this test is for: isolated del-2 levels in the band
     kc = _kcoef(CFG, NPZ, torch.float64, torch.device("cpu"))
     assert np.asarray(kc["nord0"]).reshape(-1)[:6].tolist() == [
         True, False, False, False, True, True]
 
-    jgrid = jax_to_device(gm, jnp.float64)
-    jkc = jax_kcoef(CFG, NPZ, jnp.float64)
-    fn = jax.jit(lambda *a: jax_d_sw(*a, jgrid, gm.topo, DT, NPX, 9, 9, 9, 9,
+    jgrid = jax_to_device(jgm, jnp.float64)
+    jkc = jax_kcoef(JAX_CFG, NPZ, jnp.float64)
+    fn = jax.jit(lambda *a: jax_d_sw(*a, jgrid, jgm.topo, DT, NPX, 9, 9, 9, 9,
                                      jkc, False))
     jargs = [jnp.asarray(a) for a in args]
     ref = fn.lower(*jargs).compile(

@@ -188,3 +188,27 @@ def test_cuda_module_without_nvcc():
     assert cuda_sim1.library_path().name.startswith("libsim1_")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         cuda_sim1.build()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_tile_plan_fits_every_km(dtype):
+    """Every km from 2 to 137 gets a tile of 32, 16 or 8 columns whose
+    shared memory fits a block, with threads a multiple of the tile."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    for km in range(2, 138):
+        tile, threads, smem = cuda_sim1.plan(km, itemsize)
+        assert tile in (32, 16, 8) and threads % tile == 0
+        assert smem == cuda_sim1.smem_bytes(km, tile, itemsize)
+        assert smem <= cuda_sim1.SMEM_LIMIT
+    # the c96L72 float32 shape takes the widest tile
+    assert cuda_sim1.plan(72, 4)[0] == 32
+
+
+@pytest.mark.parametrize("dtype,km", [(torch.float64, 500),
+                                      (torch.float32, 1000)])
+def test_cuda_wrapper_rejects_km_above_shared_memory(dtype, km):
+    """A column too deep for the smallest tile raises, naming the limit,
+    on any device: the wrapper takes what the kernel takes."""
+    args = [torch.as_tensor(a, dtype=dtype) for a in _inputs(km, 4, 8)]
+    with pytest.raises(ValueError, match=str(cuda_sim1.SMEM_LIMIT)):
+        cuda_sim1.sim1_solver_cuda(30.0, *args, KAPPA, 0.05)

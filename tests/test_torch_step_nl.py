@@ -24,8 +24,10 @@ import numpy as np
 import pytest
 import torch
 
-from fv3jedi_lm_tpu.config import DynConfig, LMConfig
+from fv3jedi_lm_tpu.config import DynConfig as JaxDynConfig
+from fv3jedi_lm_tpu.config import LMConfig as JaxLMConfig
 from fv3jedi_lm_tpu.lm import LinearModel as JaxLinearModel
+from fv3jedi_lm_tpu_torch.config import DynConfig, LMConfig
 from fv3jedi_lm_tpu_torch.lm import (LinearModel, traj_from_numpy,
                                      traj_to_numpy)
 
@@ -35,7 +37,8 @@ NH_KW = dict(npx=13, npy=13, npz=10, n_split=2, k_split=1,
              d2_bg_k1=0.2, d2_bg_k2=0.1, n_sponge=3,
              n_sponge_pert=4, d2_bg_k1_pert=0.2, d2_bg_k2_pert=0.1,
              d2_bg_ks_pert=0.1, hydrostatic=False)
-CFG = LMConfig(dyn=DynConfig(**NH_KW), dt=450.0)
+CFG = LMConfig(dyn=DynConfig(**NH_KW), dt=450.0)                # the port's
+JAX_CFG = JaxLMConfig(dyn=JaxDynConfig(**NH_KW), dt=450.0)     # the reference's
 FIELDS = ("u", "v", "t", "delp", "qv", "ql", "qi", "o3", "w", "delz")
 
 
@@ -63,7 +66,7 @@ def steps():
     """One JAX step and one port step of each input state."""
     from jax._src import compiler as _compiler
 
-    jlm = JaxLinearModel.create(CFG)
+    jlm = JaxLinearModel.create(JAX_CFG)
     states = _states(jlm)
     prog0 = {k: jnp.asarray(states["bump"][k]) for k in jlm.prog_3d}
     phis0 = jnp.asarray(states["bump"]["phis"])
@@ -123,18 +126,14 @@ def test_unported_options_raise():
 
 _NO_JAX = r"""
 import sys
-sys.modules["jax"] = None          # any import of jax now fails
+sys.modules["jax"] = None             # any import of jax now fails,
+sys.modules["fv3jedi_lm_tpu"] = None  # and any import of the JAX package
 import numpy as np
 import torch
 torch.set_num_threads(1)
-# the JAX package's NumPy-only modules that the port shares
-import fv3jedi_lm_tpu.config, fv3jedi_lm_tpu.constants
-import fv3jedi_lm_tpu.grid.metrics, fv3jedi_lm_tpu.grid.topology
-import fv3jedi_lm_tpu.grid.gnomonic, fv3jedi_lm_tpu.grid.sphere
-import fv3jedi_lm_tpu.grid.eta
 import fv3jedi_lm_tpu_torch
 from fv3jedi_lm_tpu_torch.lm import LinearModel
-from fv3jedi_lm_tpu.config import DynConfig, LMConfig
+from fv3jedi_lm_tpu_torch.config import DynConfig, LMConfig
 cfg = LMConfig(dyn=DynConfig(npx=13, npy=13, npz=10, n_split=2,
                              d2_bg_k1=0.2, d2_bg_k2=0.1, n_sponge=3,
                              hydrostatic=False), dt=450.0)
@@ -150,8 +149,8 @@ print("NOJAX_OK")
 
 
 def test_port_runs_without_jax():
-    """The port (and the JAX package modules it shares) imports and steps
-    in a process where every import of jax fails."""
+    """The port imports and steps in a process where every import of jax
+    and of the JAX package fails."""
     root = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
     env = dict(os.environ, PYTHONPATH=root + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
