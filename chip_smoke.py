@@ -6,13 +6,18 @@ Builds the SIM1 CUDA kernel from fv3jedi_lm_tpu_torch/csrc/sim1.cu,
 checks it against its plain PyTorch version on the card at the shapes of
 tests/test_torch_cuda.py and times it (with its copy-only and solve-only
 parts, and the tile sizes around its plan), checks the port on the GPU
-against the port on the CPU at a small size, then runs the nonhydrostatic
+against the port on the CPU at a small size, runs the nonhydrostatic
 trajectory step (LinearModel.run_nl) at c96L72 float32, checks that every
 SIM1 call of that run went through the kernel, and profiles one more step
-to find the kernel's launches in the trace.  Each phase raises on failure.
-The last two lines of standard output are a JSON line describing the
-kernels and a JSON status line.  Without a CUDA device the script exits
-non-zero and prints no result.  It imports neither JAX nor the JAX package.
+to find the kernel's launches in the trace.  Then the main path, the
+tangent-linear and adjoint pair (LinearModel.step_tl + step_ad): on the
+GPU against the CPU at c12L10 float64, hydrostatic and nonhydrostatic,
+with the dot-product identity and SIM1's launches by mode; timed at
+c96L72 float32 hydrostatic (the bench.py configuration); and one warm
+pair under torch.profiler.  Each phase raises on failure.  The last two
+lines of standard output are a JSON line describing the kernels and a
+JSON status line.  Without a CUDA device the script exits non-zero and
+prints no result.  It imports neither JAX nor the JAX package.
 """
 
 from __future__ import annotations
@@ -33,6 +38,28 @@ FULL_KW = dict(npx=97, npy=97, npz=72, n_split=6, k_split=1,
                d2_bg_k1=0.2, d2_bg_k2=0.1, n_sponge=6, hydrostatic=False,
                dtype="float32")
 FULL_DT = 900.0
+#: c12L10 float64 of the TL/AD check: tests/test_lm.py DYN_KW (hydrostatic)
+#: and tests/test_nh_e2e.py NH_KW (nonhydrostatic)
+TLAD_SMALL = {
+    "hydrostatic": dict(npx=13, npy=13, npz=10, n_split=2, k_split=1,
+                        d2_bg_k1=0.2, d2_bg_k2=0.1, n_sponge=3,
+                        n_sponge_pert=4, d2_bg_k1_pert=0.2,
+                        d2_bg_k2_pert=0.1, d2_bg_ks_pert=0.1),
+    "nonhydrostatic": dict(npx=13, npy=13, npz=10, n_split=2, k_split=1,
+                           d2_bg_k1=0.2, d2_bg_k2=0.1, n_sponge=3,
+                           n_sponge_pert=4, d2_bg_k1_pert=0.2,
+                           d2_bg_k2_pert=0.1, d2_bg_ks_pert=0.1,
+                           hydrostatic=False),
+}
+#: c96L72 hydrostatic float32, the configuration of bench.py's TL+AD
+#: metric (bench.py:174-180); the DynConfig defaults give the split
+#: linearization (pert hord 2, kord 17, pert sponge, vorticity damping)
+TLAD_FULL_KW = dict(npx=97, npy=97, npz=72, n_split=6, k_split=1,
+                    d2_bg_k1=0.2, d2_bg_k2=0.1, n_sponge=6, dtype="float32")
+#: the perturbation scales of tests/test_lm.py and tests/test_nh_e2e.py
+#: `_rand_pert`
+PERT_SCALE = dict(u=1.0, v=1.0, t=1.0, delp=10.0, qv=1e-4, ql=1e-6,
+                  qi=1e-6, o3=1e-7, w=0.1, delz=1.0)
 #: SIM1 at c96L72: 72 levels, 6 faces of 102 x 102 padded columns
 KM, B_FULL = 72, 6 * 102 * 102
 #: (dtype, km, B) of the kernel check, as tests/test_torch_cuda.py
@@ -145,6 +172,85 @@ def _moisten(lm, tr):
     carry a non-zero tracer."""
     tr["qv"] = 5.0e-3 * (1.0 + 0.1 * _bump(lm, amp=1.0))
     return tr
+
+
+def spun_up(lm, nsteps, moist):
+    """The smooth spun-up trajectory of tests/test_lm.py `_spun_up` (moist,
+    3 steps) and tests/test_nh_e2e.py `_spun_up` (dry, 2 steps), on the
+    port."""
+    tr = lm.rest_traj()
+    tr["t"] = tr["t"] + _bump(lm)
+    if moist:
+        n = lm.cfg.dyn.nx
+        npz = lm.cfg.dyn.npz
+        jj, ii = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+        faces = np.arange(6)[:, None, None]
+        qv = 1e-3 * (1.0 + np.sin(2.0 * np.pi * (ii + jj) / n + faces)
+                     ) * np.ones((npz, 1, 1, 1))
+        tr["qv"] = tr["qv"] + torch.as_tensor(qv, dtype=lm.dtype,
+                                              device=lm.device)
+    for _ in range(nsteps):
+        tr = lm.step_nl(tr)
+    return tr
+
+
+def rand_pert(lm, seed):
+    """tests/test_lm.py `_rand_pert` on the port: the same numbers."""
+    rng = np.random.default_rng(seed)
+    return {k: torch.as_tensor(rng.standard_normal(tuple(v.shape))
+                               * PERT_SCALE[k], dtype=lm.dtype,
+                               device=lm.device)
+            for k, v in lm.zero_pert().items()}
+
+
+def dot(a, b, keys):
+    """<a, b> over the fields `keys`, summed in float64 on the host."""
+    return sum(float((a[k].double() * b[k].double()).sum()) for k in keys)
+
+
+def tlad_devices(kw, devices=("cuda", "cpu")):
+    """step_tl(traj, rand_pert(1)) and step_ad(traj, rand_pert(2)) at the
+    c12L10 configuration `kw` (float64), from one trajectory spun up on
+    the CPU, on each device.  Returns {device: dict(tl, ad (numpy), dot
+    (the identity's relative error), fwd_launches (SIM1 kernel launches of
+    `forward`), mixed_launches (of record, TL and AD))}."""
+    from fv3jedi_lm_tpu_torch.config import DynConfig, LMConfig
+    from fv3jedi_lm_tpu_torch.lm import (LinearModel, traj_from_numpy,
+                                         traj_to_numpy)
+    from fv3jedi_lm_tpu_torch.ops.cuda_sim1 import sim1_solver_cuda
+
+    cfg = LMConfig(dyn=DynConfig(**kw), dt=450.0)
+    hyd = cfg.dyn.hydrostatic
+    cpu = LinearModel.create(cfg, device="cpu")
+    traj = traj_to_numpy(spun_up(cpu, 3 if hyd else 2, moist=hyd))
+    out = {}
+    for dev in devices:
+        lm = LinearModel.create(cfg, device=dev)
+        tr = traj_from_numpy(lm, traj)
+        dx, dy = rand_pert(lm, 1), rand_pert(lm, 2)
+        stepper = lm._staged()
+        record = stepper.record
+        fwd = []
+
+        def counted_record(cks, record=record, fwd=fwd):
+            # forward has run: its launches, then count the mixed stages'
+            fwd.append(sim1_solver_cuda.launches)
+            sim1_solver_cuda.launches = 0
+            return record(cks)
+
+        stepper.record = counted_record
+        sim1_solver_cuda.launches = 0
+        mdx = lm.step_tl(tr, dx)
+        mtdy = lm.step_ad(tr, dy)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        mixed = sim1_solver_cuda.launches
+        lhs = dot(mdx, dy, lm.prog_3d)
+        rhs = dot(dx, mtdy, lm.prog_3d)
+        out[dev] = dict(tl=traj_to_numpy(mdx), ad=traj_to_numpy(mtdy),
+                        dot=abs(lhs - rhs) / max(abs(lhs), 1e-300),
+                        fwd_launches=fwd[0], mixed_launches=mixed)
+    return out
 
 
 def phase_build():
@@ -364,6 +470,185 @@ def phase_profile(lm, tr):
                              f"expected {want}")
 
 
+def phase_tlad_small():
+    """The TL/AD pair on the GPU against the CPU at c12L10 float64,
+    hydrostatic and nonhydrostatic: every field to 1e-10 relative norm, the
+    dot-product identity below 1e-12 on the card, and SIM1 by mode: the
+    trajectory substeps of `forward` launch the kernel (2 per substep,
+    nonhydrostatic), the differentiated stages never do."""
+    for name, kw in TLAD_SMALL.items():
+        res = tlad_devices(kw)
+        n_split = kw["n_split"]
+        for sweep in ("tl", "ad"):
+            worst = 0.0
+            for k, want in res["cpu"][sweep].items():
+                got = res["cuda"][sweep][k]
+                if not np.isfinite(got).all():
+                    raise AssertionError(f"tlad small {name} {sweep} {k}: "
+                                         "non-finite values")
+                rel = float(np.linalg.norm(got - want)
+                            / max(np.linalg.norm(want), 1e-300))
+                worst = max(worst, rel)
+                if not rel <= 1e-10:
+                    raise AssertionError(f"tlad small {name} {sweep} {k}: "
+                                         f"|cuda-cpu|/|cpu| = {rel} > 1e-10")
+            print(f"[tlad_small] {name} {sweep}: max over fields of "
+                  f"|cuda-cpu|/|cpu| = {worst:.3e}", flush=True)
+        for dev, r in res.items():
+            print(f"[tlad_small] {name} {dev}: dot-product identity "
+                  f"{r['dot']:.3e}; SIM1 kernel launches: forward "
+                  f"{r['fwd_launches']}, record+TL+AD {r['mixed_launches']}",
+                  flush=True)
+        want_fwd = 0 if kw.get("hydrostatic", True) else 2 * n_split
+        if not res["cuda"]["dot"] < 1e-12:
+            raise AssertionError(f"tlad small {name}: dot-product identity "
+                                 f"{res['cuda']['dot']} >= 1e-12 on the card")
+        if (res["cuda"]["fwd_launches"], res["cuda"]["mixed_launches"]) != (
+                want_fwd, 0):
+            raise AssertionError(
+                f"tlad small {name}: SIM1 launches forward "
+                f"{res['cuda']['fwd_launches']} (want {want_fwd}), mixed "
+                f"{res['cuda']['mixed_launches']} (want 0)")
+
+
+def _bench_case(lm):
+    """bench.py's trajectory and perturbation (bench.py:182-188, seed 0):
+    rest plus 2 K of white noise on t, and a 1e-3 white-noise pert."""
+    traj = lm.rest_traj()
+    rng = np.random.default_rng(0)
+    noise = 2.0 * rng.standard_normal(tuple(traj["t"].shape)).astype(
+        np.float32)
+    traj["t"] = traj["t"] + torch.as_tensor(noise, device=lm.device)
+    pert = {k: torch.as_tensor(
+        (1e-3 * rng.standard_normal(tuple(v.shape))).astype(np.float32),
+        device=lm.device) for k, v in lm.zero_pert().items()}
+    return traj, pert
+
+
+def phase_tlad_full(card, pairs=4):
+    """c96L72 hydrostatic float32 (bench.py's configuration and inputs):
+    one first pair of step_tl + step_ad(traj, tl) (with the trajectory's
+    forward and record, timed on their own), then `pairs` timed pairs,
+    each ending in torch.cuda.synchronize() (bench.py:199-209).  Returns
+    (lm, traj, pert, best pair seconds, SIM1 launches of the run)."""
+    from fv3jedi_lm_tpu_torch.config import DynConfig, LMConfig
+    from fv3jedi_lm_tpu_torch.lm import LinearModel
+    from fv3jedi_lm_tpu_torch.ops.cuda_sim1 import sim1_solver_cuda
+
+    cfg = LMConfig(dyn=DynConfig(**TLAD_FULL_KW), dt=FULL_DT)
+    lm = LinearModel.create(cfg)
+    traj, pert = _bench_case(lm)
+    stepper = lm._staged()
+    parts = {}
+
+    def timed(name, fn):
+        def run(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            parts[name] = time.perf_counter() - t0
+            return out
+        return run
+
+    stepper.forward = timed("forward", stepper.forward)
+    stepper.record = timed("record", stepper.record)
+
+    def pair():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tl = lm.step_tl(traj, pert)
+        ad = lm.step_ad(traj, tl)
+        torch.cuda.synchronize()
+        return tl, ad, time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    sim1_solver_cuda.launches = 0
+    tl, ad, first = pair()
+    times = []
+    for _ in range(pairs):
+        tl, ad, t = pair()
+        times.append(t)
+    launches = sim1_solver_cuda.launches
+    peak = torch.cuda.max_memory_allocated()
+    del stepper.forward, stepper.record
+
+    for what, d in (("tl", tl), ("ad", ad)):
+        for k in lm.prog_3d:
+            if not bool(torch.isfinite(d[k]).all()):
+                raise AssertionError(f"tlad full {what} {k}: not finite")
+            if not bool((d[k] != 0).any()):
+                raise AssertionError(f"tlad full {what} {k}: all zero")
+    lhs = dot(tl, tl, lm.prog_3d)
+    rhs = dot(pert, ad, lm.prog_3d)
+    rel = abs(lhs - rhs) / max(abs(lhs), 1e-300)
+    if not np.isfinite(rel):
+        raise AssertionError(f"tlad full: dot-product error {rel}")
+    best = min(times)
+    n = cfg.dyn.nx
+    print(f"[tlad_full] c96L72 hydrostatic f32 dt=900 n_split=6: first pair "
+          f"{first:.4f} s (forward {parts['forward']:.4f} s, record "
+          f"{parts['record']:.4f} s), then pairs "
+          + ", ".join(f"{t:.4f}" for t in times) + " s", flush=True)
+    print(f"[tlad_full] best pair {best:.4f} s: "
+          f"{n * n * 6 * cfg.dyn.npz / best:.1f} grid-points/s; peak device "
+          f"memory {peak / 2**30:.3f} GiB; SIM1 launches {launches}; "
+          f"dot-product <M p, M p> vs <p, M^T M p> relative error {rel:.3e} "
+          f"(float32) ({card[0]}; {card[1]})", flush=True)
+    if launches != 0:
+        raise AssertionError(f"tlad full: {launches} SIM1 launches on the "
+                             "hydrostatic path")
+    return lm, traj, pert, best, launches
+
+
+#: the profile scopes of the TL/AD sweeps (core/staged.py) and of the
+#: stages they run
+TLAD_SCOPES = ("tl.prep", "tl.pre", "tl.substep", "tl.post", "ad.post",
+               "ad.stage_c", "ad.stage_b", "ad.stage_a", "ad.pre", "ad.prep",
+               "halo_uv", "c_sw", "geopk_c", "p_grad_c", "d_sw", "d_sw_pert",
+               "geopk_d", "one_grad_p", "acoustic_finish", "tracer_2d",
+               "remap")
+
+
+def phase_tlad_profile(lm, traj, pert, best):
+    """One warm c96L72 pair under torch.profiler: its kernel launches,
+    kernel time and busy share, and the kernel and host time by scope."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tl = lm.step_tl(traj, pert)
+        lm.step_ad(traj, tl)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    n_kernels, kernel_us = 0, 0.0
+    dev_us, host_us, calls = {}, {}, {}
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            if not getattr(evt, "is_user_annotation", False):
+                n_kernels += 1
+                kernel_us += evt.device_time_total
+        elif evt.name in TLAD_SCOPES:
+            dev_us[evt.name] = (dev_us.get(evt.name, 0.0)
+                                + evt.device_time_total)
+            host_us[evt.name] = host_us.get(evt.name, 0.0) + evt.cpu_time_total
+            calls[evt.name] = calls.get(evt.name, 0) + 1
+    print(f"[tlad_profile] c96L72 pair: {n_kernels} kernel launches, "
+          f"{kernel_us / 1e3:.3f} ms of kernel time; profiled wall "
+          f"{wall:.4f} s (busy {100 * kernel_us / 1e6 / wall:.1f} %), "
+          f"unprofiled best pair {best:.4f} s (busy "
+          f"{100 * kernel_us / 1e6 / best:.1f} %)", flush=True)
+    for name in TLAD_SCOPES:
+        if name in calls:
+            print(f"[tlad_profile] scope {name}: {calls[name]} calls, kernels "
+                  f"{dev_us[name] / 1e3:.3f} ms, host "
+                  f"{host_us[name] / 1e3:.3f} ms", flush=True)
+    if n_kernels == 0:
+        raise AssertionError("tlad profile: no kernel events in the trace")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -376,6 +661,12 @@ def main():
     phase_small()
     lm, last, record["launches"] = phase_full(card)
     phase_profile(lm, last)
+    del lm, last
+    phase_tlad_small()
+    lm, traj, pert, best, record["launches_tlad_c96L72"] = phase_tlad_full(
+        card)
+    phase_tlad_profile(lm, traj, pert, best)
+    print(card[1], flush=True)
     print(json.dumps({"kernels": [record]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

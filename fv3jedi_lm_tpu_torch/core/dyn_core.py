@@ -1,18 +1,22 @@
-"""Acoustic (Lagrangian-dynamics) core: the n_split loop, nonhydrostatic
-trajectory path.
+"""Acoustic (Lagrangian-dynamics) core: the n_split loop.
 
 Counterpart of fv3jedi_lm_tpu/core/dyn_core.py (model/dyn_core_nlm.F90).
 Vertical axis leading: 3-D fields (npz, 6, jy, jx), interface fields
 (npz+1, 6, jy, jx).  One acoustic substep (dyn_core_nlm.F90:288-1000):
 
-  a: halo(u,v,w) -> c_sw -> update_dz_c -> Riem_Solver_C (SIM1) ->
-     p_grad_c (NH delpc form) -> halo(uc,vc)
-  b: d_sw (trajectory scheme)
-  c: halo(delp,pt) -> update_dz_d -> Riem_Solver3 (SIM1) -> nh_p_grad
+  a: halo(u,v[,w]) -> c_sw -> hydrostatic: geopk -> p_grad_c
+                              NH: update_dz_c -> Riem_Solver_C (SIM1) ->
+                                  p_grad_c (delpc form)
+     -> halo(uc,vc)
+  b: d_sw (trajectory scheme [+ perturbation scheme, mixed])
+  c: halo(delp,pt) -> hydrostatic: geopk -> one_grad_p
+                      NH: update_dz_d -> Riem_Solver3 (SIM1) -> nh_p_grad
 
-The hydrostatic branches (geopk, one_grad_p), the mixed/linearized stage
-form and the options beta, d_ext, d_con, fill_dp and Rayleigh_fast come
-with later slices and raise here.
+mode="mixed" is the linearization target of the tangent-linear and adjoint
+sweeps (core/staged.py): d_sw runs the trajectory and the perturbation
+schemes and `freeze.mix_primal` takes the value from the first and the
+derivative from the second (dyn_core_tlm.F90:835-960).  The options beta,
+d_ext, d_con, fill_dp and Rayleigh_fast raise.
 """
 
 from __future__ import annotations
@@ -21,25 +25,48 @@ import numpy as np
 import torch
 
 from .. import NG
+from ..constants import CP as CP_AIR
 from ..constants import GRAV, RGAS
 from ..ops.a2b_edge import a2b_ord4
 from ..ops.d_sw import d_sw
 from ..ops.sw_core import F2P, SL, c_sw
 from ..parallel import halo
 from ..timing import scope
+from .freeze import fbool, fmax, mix_primal
 from .nh_core import riem_solver3, riem_solver_c, update_dz_c, update_dz_d
 
 
-def p_grad_c(dt2, pkc, gz, uc, vc, grid, npx, delpc):
-    """C-grid pressure-gradient update, nonhydrostatic form
-    (dyn_core_nlm.F90:1369-1428): pkc is the FULL pressure from
+def geopk(ptop, delp, pt, hs, akap):
+    """Hydrostatic pressures + geopotential (dyn_core_nlm.F90:1954-2087).
+
+    pt is virtual potential temperature; computed on the full padded
+    domain.  Returns (pe, peln, pk, gz, pkz)."""
+    delp_s = fmax(delp, 1.0e-30)
+    pe = torch.cat([delp.new_full((1,) + delp.shape[1:], ptop),
+                    ptop + torch.cumsum(delp_s, dim=0)])
+    peln = torch.log(pe)
+    pk = torch.exp(akap * peln)
+    dgz = CP_AIR * pt * (pk[1:] - pk[:-1])
+    rev = torch.flip(torch.cumsum(torch.flip(dgz, [0]), dim=0), [0])
+    gz = torch.cat([hs[None] + rev, hs[None]])
+    dpeln = peln[1:] - peln[:-1]
+    ok = fbool(dpeln > 0.0)
+    pkz = (pk[1:] - pk[:-1]) / (akap * torch.where(ok, dpeln, 1.0))
+    pkz = torch.where(ok, pkz, 1.0)
+    return pe, peln, pk, gz, pkz
+
+
+def p_grad_c(dt2, pkc, gz, uc, vc, grid, npx, delpc=None):
+    """C-grid pressure-gradient update (dyn_core_nlm.F90:1369-1428).
+    Hydrostatic: pkc is pe**kappa and the layer weight its difference;
+    nonhydrostatic (delpc given): pkc is the FULL pressure from
     Riem_Solver_C and the layer weight is delpc (:1394-1404)."""
     p = F2P
     n = npx - 1
     npy = npx
     rdxc = grid["rdxc"]
     rdyc = grid["rdyc"]
-    wk = delpc
+    wk = delpc if delpc is not None else pkc[1:] - pkc[:-1]
 
     bs = SL(1, npx)
     cs = SL(1, n)
@@ -63,6 +90,48 @@ def p_grad_c(dt2, pkc, gz, uc, vc, grid, npx, delpc):
            + (gz[:-1][..., rm, cs] - gz[1:][..., r0, cs])
            * (pkc[1:][..., rm, cs] - pkc[:-1][..., r0, cs])))
     return uc, vc
+
+
+def one_grad_p(u, v, pk, gz, dt, grid, npx, ptop, akap):
+    """D-grid pressure gradient, hydrostatic (dyn_core_nlm.F90:1645-1778),
+    without the external-mode damping (d_ext = 0)."""
+    p = F2P
+    n = npx - 1
+    npy = npx
+    rdx = grid["rdx"]
+    rdy = grid["rdy"]
+    jb = u.shape[-2]
+    ptk = ptop ** akap
+
+    # B-grid interface fields
+    top = pk.new_full(pk.shape[1:-2] + (jb, jb), ptk)[None]
+    pk_b = torch.cat([top, a2b_ord4(pk[1:], grid)])
+    gz_b = a2b_ord4(gz, grid)
+
+    bs = SL(1, npx)
+    cs = SL(1, n)
+    wk = pk_b[1:] - pk_b[:-1]
+    b0 = slice(p(1), p(n) + 1)    # B cols i for u's cells 1..n
+    b1 = slice(p(2), p(npx) + 1)  # B cols i+1
+    u_new = u.clone()
+    u_new[..., bs, cs] = rdx[..., bs, cs] * (
+        0.0 + u[..., bs, cs]
+        + dt / (wk[..., bs, b0] + wk[..., bs, b1])
+        * ((gz_b[1:][..., bs, b0] - gz_b[:-1][..., bs, b1])
+           * (pk_b[1:][..., bs, b1] - pk_b[:-1][..., bs, b0])
+           + (gz_b[:-1][..., bs, b0] - gz_b[1:][..., bs, b1])
+           * (pk_b[1:][..., bs, b0] - pk_b[:-1][..., bs, b1])))
+    r0 = slice(p(1), p(n) + 1)
+    r1 = slice(p(2), p(npy) + 1)
+    v_new = v.clone()
+    v_new[..., cs, bs] = rdy[..., cs, bs] * (
+        0.0 + v[..., cs, bs]
+        + dt / (wk[..., r0, bs] + wk[..., r1, bs])
+        * ((gz_b[1:][..., r0, bs] - gz_b[:-1][..., r1, bs])
+           * (pk_b[1:][..., r1, bs] - pk_b[:-1][..., r0, bs])
+           + (gz_b[:-1][..., r0, bs] - gz_b[1:][..., r1, bs])
+           * (pk_b[1:][..., r0, bs] - pk_b[:-1][..., r1, bs])))
+    return u_new, v_new
 
 
 def nh_p_grad(u, v, pp, gz, delp, pk3, dt, grid, npx, ptop, akap):
@@ -155,19 +224,104 @@ def _kcoef(cfg, npz, dtype, device):
     )
 
 
-def _check_slice(cfg, mode):
-    """The options this slice ports; everything else raises."""
-    if mode != "traj":
-        raise NotImplementedError(
-            f"acoustic substep mode={mode!r}: ROADMAP Queue 1, staged TL/AD")
-    if cfg.hydrostatic:
-        raise NotImplementedError(
-            "hydrostatic dynamics (geopk, p_grad_c, one_grad_p): ROADMAP "
-            "Queue 1, hydrostatic branches")
+def _kcoef_pert(cfg, npz, dtype, device):
+    """Per-level PERTURBATION damping coefficients (dyn_core_tlm.F90:
+    835-920): nord_pert del-nord damping with d2_divg_pert =
+    min(0.20, d2_bg_pert) outside the perturbation sponge; inside (k <=
+    n_sponge_pert) nord drops to 0 with the d2_bg_k1/k2/ks_pert cascade,
+    nord_w drops to 0 with damp_w = d2, and vorticity damping becomes del-2
+    with damp_v = 0.5*d2.  nord_t/damp_t keep their non-sponge values."""
+    nsp = cfg.n_sponge_pert
+    nv = min(2, cfg.nord_pert)
+    base_damp = cfg.vtdm4_pert if cfg.do_vort_damp_pert else 0.0
+    d2 = np.empty(npz)
+    dv = np.empty(npz)
+    dw = np.empty(npz)
+    dtm = np.full(npz, base_damp)
+    nord_k = np.empty(npz, int)
+    nordv_k = np.empty(npz, int)
+    nordw_k = np.empty(npz, int)
+    nordt_k = np.full(npz, nv, int)
+    for k0 in range(npz):
+        k = k0 + 1  # Fortran level
+        nord_k[k0] = cfg.nord_pert
+        nordv_k[k0] = nv
+        nordw_k[k0] = nv
+        d2k = min(0.20, cfg.d2_bg_pert)
+        dv[k0] = base_damp
+        dw[k0] = base_damp
+        if k <= nsp:
+            nord_k[k0] = 0
+            dref = (cfg.d2_bg_k1_pert if k == 1
+                    else cfg.d2_bg_k2_pert if k == 2
+                    else cfg.d2_bg_ks_pert)
+            if cfg.d2_bg_pert > 0.01:
+                d2k = max(cfg.d2_bg_pert, dref)
+            elif dref > 0.01:
+                d2k = dref
+            else:
+                d2k = 0.01
+            nordw_k[k0] = 0
+            dw[k0] = d2k
+            if cfg.do_vort_damp_pert:
+                nordv_k[k0] = 0
+                dv[k0] = 0.5 * d2k
+        d2[k0] = d2k
+
+    def a(x):
+        return torch.as_tensor(x.reshape(npz, 1, 1, 1), dtype=dtype,
+                               device=device)
+
+    def m(x):
+        return np.asarray(x).reshape(npz, 1, 1, 1)
+
+    return dict(
+        nord=cfg.nord_pert, nord_v=nv, nord_t=nv, nord_w=nv,
+        dddmp=cfg.dddmp_pert, d4_bg=cfg.d4_bg_pert, d_con=cfg.d_con,
+        ke_bg=cfg.ke_bg, do_vort_damp=cfg.do_vort_damp_pert,
+        d2_divg=a(d2), damp_v=a(dv), damp_w=a(dw), damp_t=a(dtm),
+        # the trajectory's per-level d_con rides along (no pert d_con)
+        dcon=_kcoef(cfg, npz, dtype, device)["dcon"],
+        nord0=m(nord_k == 0), nordv0=m(nordv_k == 0),
+        nordt0=m(nordt_k == 0), nordw0=m(nordw_k == 0),
+    )
+
+
+def _sponge_hords(cfg, npz, mains, ks_val):
+    """Per-variable advection options with the perturbation-sponge override
+    (dyn_core_tlm.F90:861-875): levels k <= n_sponge_pert-1 use `ks_val`,
+    carried as the static band `(main, ks_val, ksp)`."""
+    ksp = min(max(cfg.n_sponge_pert - 1, 0), npz)
+
+    def h(main):
+        if ksp > 0 and main != ks_val:
+            return (main, ks_val, ksp)
+        return main
+    return dict(hord_mt=h(mains[0]), hord_vt=h(mains[1]),
+                hord_tm=h(mains[2]), hord_dp=h(mains[3]))
+
+
+def _pert_hords(cfg, npz):
+    """Perturbation advection options with the sponge override."""
+    return _sponge_hords(
+        cfg, npz, (cfg.hord_mt_pert, cfg.hord_vt_pert, cfg.hord_tm_pert,
+                   cfg.hord_dp_pert), cfg.hord_ks_pert)
+
+
+def _traj_sponge_hords(cfg, npz):
+    """Trajectory advection options inside the linearization: in the
+    perturbation sponge levels the trajectory also drops to hord_ks_traj
+    (dyn_core_tlm.F90:862-868)."""
+    return _sponge_hords(
+        cfg, npz, (cfg.hord_mt, cfg.hord_vt, cfg.hord_tm, cfg.hord_dp),
+        cfg.hord_ks_traj)
+
+
+def _check_slice(cfg):
+    """The options the port runs; everything else raises."""
     unported = dict(beta=cfg.beta > 0.0, d_ext=cfg.d_ext > 0.0,
                     d_con=cfg.d_con > 1.0e-5, fill_dp=cfg.fill_dp,
-                    rayleigh_fast=cfg.rayleigh_fast and cfg.tau > 0.0,
-                    do_vort_damp=cfg.do_vort_damp)
+                    rayleigh_fast=cfg.rayleigh_fast and cfg.tau > 0.0)
     bad = [k for k, v in unported.items() if v]
     if bad:
         raise NotImplementedError(
@@ -176,17 +330,14 @@ def _check_slice(cfg, mode):
 
 
 def acoustic_carry(state, cfg, npz):
-    """Initial acoustic-loop carry from the interface state (zeroed vert
-    block filled by the final substep, NH interface heights)."""
+    """Initial acoustic-loop carry from the interface state (zeroed heat
+    source and vert block, filled by the final substep; NH interface
+    heights)."""
     n = cfg.npx - 1
     jc = n + 2 * NG
     lead = state["u"].shape[:-2]
     u = state["u"]
-    zs = state["phis"] / GRAV
-    # interface heights from delz, zh(km+1) = zs (dyn_core_nlm.F90:323-352)
-    zh = torch.cat([zs[None] - torch.flip(
-        torch.cumsum(torch.flip(state["delz"], [0]), dim=0), [0]), zs[None]])
-    return dict(
+    out = dict(
         u=u, v=state["v"], w=state["w"],
         delp=state["delp"], pt=state["pt"],
         uc=state["uc"], vc=state["vc"], divgd=state["divgd"],
@@ -196,105 +347,183 @@ def acoustic_carry(state, cfg, npz):
         peln=u.new_zeros((npz + 1,) + lead[1:] + (jc, jc)),
         pk=u.new_zeros((npz + 1,) + lead[1:] + (jc, jc)),
         pkz=u.new_zeros(lead + (jc, jc)),
-        zh=zh, delz=state["delz"],
-        ws=u.new_zeros(lead[1:] + (jc, jc)),
     )
+    if not cfg.hydrostatic:
+        # interface heights from delz, zh(km+1) = zs (dyn_core_nlm.F90:
+        # 323-352)
+        zs = state["phis"] / GRAV
+        out["zh"] = torch.cat([zs[None] - torch.flip(
+            torch.cumsum(torch.flip(state["delz"], [0]), dim=0), [0]),
+            zs[None]])
+        out["delz"] = state["delz"]
+        out["ws"] = u.new_zeros(lead[1:] + (jc, jc))
+    return out
+
+
+def _detached(args):
+    return tuple(a.detach() if isinstance(a, torch.Tensor) else a
+                 for a in args)
 
 
 def make_acoustic_substep(grid, topo, cfg, dt_remap, akap, ptop, npz, dtype,
                           mode="traj", dp_ref=None):
-    """Build the one-acoustic-substep function substep(carry, consts) of the
-    nonhydrostatic trajectory step; consts = {"phis": padded surface
-    geopotential}.  Stages a, b, c are exposed as `substep.stages`."""
-    _check_slice(cfg, mode)
+    """Build the one-acoustic-substep function substep(carry, consts);
+    consts = {"phis": padded surface geopotential}.  Stages a, b, c are
+    exposed as `substep.stages` (the adjoint takes one stage's vjp at a
+    time).
+
+    mode="traj": the nonlinear step's substep; SIM1 runs as the CUDA kernel
+    on the card.  mode="mixed": the linearization target (module
+    docstring); it calls the plain `nh_core.sim1_solver`, which the sweeps
+    differentiate, as the JAX package does (its Pallas SIM1 serves the
+    trajectory path only)."""
+    if mode not in ("traj", "mixed"):
+        raise ValueError(f"acoustic substep mode {mode!r}")
+    _check_slice(cfg)
     npx = cfg.npx
     dt = dt_remap / cfg.n_split
     dt2 = 0.5 * dt
-    kcoef = _kcoef(cfg, npz, dtype, grid["area"].device)
+    device = grid["area"].device
+    kcoef = _kcoef(cfg, npz, dtype, device)
+    use_kernel = mode == "traj"
+    mix_hord = mode == "mixed" and cfg.split_hord
+    mix_damp = mode == "mixed" and cfg.split_damp
+    # trajectory-side advection inside the linearization: the perturbation
+    # sponge levels drop to hord_*_ks_traj when split
+    hords_t = (_traj_sponge_hords(cfg, npz) if mix_hord else dict(
+        hord_mt=cfg.hord_mt, hord_vt=cfg.hord_vt,
+        hord_tm=cfg.hord_tm, hord_dp=cfg.hord_dp))
+    if mix_hord or mix_damp:
+        hords_p = (_pert_hords(cfg, npz) if mix_hord else dict(
+            hord_mt=cfg.hord_mt, hord_vt=cfg.hord_vt,
+            hord_tm=cfg.hord_tm, hord_dp=cfg.hord_dp))
+        kcoef_p = _kcoef_pert(cfg, npz, dtype, device) if mix_damp else kcoef
+    else:
+        hords_p = kcoef_p = None
 
     def stage_a(c, consts):
-        """halo(u,v,w) -> c_sw -> update_dz_c -> Riem_Solver_C ->
-        p_grad_c -> halo(uc,vc)."""
+        """halo(u,v[,w]) -> c_sw -> geopk/p_grad_c (hydrostatic) or
+        update_dz_c/Riem_Solver_C/p_grad_c (NH) -> halo(uc,vc)."""
         phis = consts["phis"]
+        w = c["w"]
         with scope("halo_uv"):
             u, v = halo.fill_halo_dgrid(c["u"], c["v"], topo)
-            w = halo.fill_halo_center(c["w"], topo)
+            if not cfg.hydrostatic:
+                w = halo.fill_halo_center(w, topo)
         with scope("c_sw"):
             delpc, ptc, wc, uc, vc, divgd, ua, va, ut_c, vt_c = c_sw(
                 c["delp"], c["pt"], u, v, w, c["uc"], c["vc"], grid, dt2,
-                cfg.nord, npx)
+                cfg.nord, npx, hydrostatic=cfg.hydrostatic)
         if cfg.nord > 0:
             divgd = halo.fill_halo_corner(divgd, topo)
-        # NH C-stage (dyn_core_nlm.F90:437-504)
-        zs = phis / GRAV
-        with scope("update_dz_c"):
-            gz_m, ws3 = update_dz_c(dt2, dp_ref, zs, ut_c, vt_c, c["zh"],
-                                    grid, npx)
-        with scope("riem_c"):
-            pkc_c, gz_c, _ = riem_solver_c(dt2, akap, ptop, phis, wc, ptc,
-                                           delpc, gz_m, ws3, cfg.p_fac)
-        with scope("p_grad_c"):
-            uc, vc = p_grad_c(dt2, pkc_c, gz_c, uc, vc, grid, npx, delpc)
+        if cfg.hydrostatic:
+            with scope("geopk_c"):
+                _, _, pkc_c, gz_c, _ = geopk(ptop, delpc, ptc, phis, akap)
+            with scope("p_grad_c"):
+                uc, vc = p_grad_c(dt2, pkc_c, gz_c, uc, vc, grid, npx)
+        else:
+            # NH C-stage (dyn_core_nlm.F90:437-504)
+            zs = phis / GRAV
+            with scope("update_dz_c"):
+                gz_m, ws3 = update_dz_c(dt2, dp_ref, zs, ut_c, vt_c, c["zh"],
+                                        grid, npx)
+            with scope("riem_c"):
+                pkc_c, gz_c, _ = riem_solver_c(dt2, akap, ptop, phis, wc, ptc,
+                                               delpc, gz_m, ws3, cfg.p_fac,
+                                               use_kernel=use_kernel)
+            with scope("p_grad_c"):
+                uc, vc = p_grad_c(dt2, pkc_c, gz_c, uc, vc, grid, npx, delpc)
         uc, vc = halo.fill_halo_cgrid(uc, vc, topo)
-        return dict(u=u, v=v, w=w, delp=c["delp"], pt=c["pt"], uc=uc, vc=vc,
-                    divgd=divgd, ua=ua, va=va,
-                    mfx=c["mfx"], mfy=c["mfy"], cx=c["cx"], cy=c["cy"],
-                    heat_source=c["heat_source"],
-                    zh=c["zh"], delz=c["delz"], ws=c["ws"])
+        ab = dict(u=u, v=v, w=w, delp=c["delp"], pt=c["pt"], uc=uc, vc=vc,
+                  divgd=divgd, ua=ua, va=va,
+                  mfx=c["mfx"], mfy=c["mfy"], cx=c["cx"], cy=c["cy"],
+                  heat_source=c["heat_source"])
+        if not cfg.hydrostatic:
+            ab.update(zh=c["zh"], delz=c["delz"], ws=c["ws"])
+        return ab
 
     def stage_b(ab, consts):
-        """d_sw, trajectory scheme."""
+        """d_sw (trajectory scheme [+ perturbation scheme, mixed])."""
+        dsw_args = (ab["delp"], ab["pt"], ab["u"], ab["v"], ab["w"],
+                    ab["uc"], ab["vc"], ab["ua"], ab["va"], ab["divgd"],
+                    ab["mfx"], ab["mfy"], ab["cx"], ab["cy"])
+        if hords_p is not None:
+            # only the value of the trajectory scheme is used: run it on
+            # detached inputs so that no derivative is carried through it
+            targs = _detached(dsw_args)
+        else:
+            targs = dsw_args
         with scope("d_sw"):
-            r = d_sw(ab["delp"], ab["pt"], ab["u"], ab["v"], ab["w"],
-                     ab["uc"], ab["vc"], ab["ua"], ab["va"], ab["divgd"],
-                     ab["mfx"], ab["mfy"], ab["cx"], ab["cy"],
-                     grid, topo, dt, npx,
-                     cfg.hord_mt, cfg.hord_vt, cfg.hord_tm, cfg.hord_dp,
-                     kcoef)
-        return dict(
-            delp=r["delp"], pt=r["pt"], u=r["u"], v=r["v"], w=r["w"],
+            r = d_sw(*targs, grid, topo, dt, npx,
+                     hords_t["hord_mt"], hords_t["hord_vt"],
+                     hords_t["hord_tm"], hords_t["hord_dp"],
+                     kcoef, hydrostatic=cfg.hydrostatic)
+        if hords_p is not None:
+            with scope("d_sw_pert"):
+                r_p = d_sw(*dsw_args, grid, topo, dt, npx,
+                           hords_p["hord_mt"], hords_p["hord_vt"],
+                           hords_p["hord_tm"], hords_p["hord_dp"],
+                           kcoef_p, hydrostatic=cfg.hydrostatic)
+            r = mix_primal(r, r_p)
+        bc = dict(
+            delp=r["delp"], pt=r["pt"], u=r["u"], v=r["v"],
+            w=ab["w"] if cfg.hydrostatic else r["w"],
             divgd=r["divg_d"], divd_b=r["divd_b"],
             mfx=r["xflux"], mfy=r["yflux"], cx=r["cx"], cy=r["cy"],
             heat_source=ab["heat_source"] + r["heat_source"],
             uc=ab["uc"], vc=ab["vc"],
-            zh=ab["zh"], delz=ab["delz"], ws=ab["ws"],
-            # per-substep courant numbers / area fluxes for update_dz_d
-            crx=r["crx"], cry=r["cry"], xfx=r["xfx"], yfx=r["yfx"],
         )
+        if not cfg.hydrostatic:
+            bc.update(zh=ab["zh"], delz=ab["delz"], ws=ab["ws"],
+                      # per-substep courant numbers / area fluxes for
+                      # update_dz_d
+                      crx=r["crx"], cry=r["cry"], xfx=r["xfx"], yfx=r["yfx"])
+        return bc
 
     def stage_c(bc, consts):
-        """halo(delp,pt) -> update_dz_d -> Riem_Solver3 -> nh_p_grad
-        (dyn_core_nlm.F90:762-880).  pkz is the instantaneous NH equation
-        of state."""
+        """halo(delp,pt) -> geopk -> one_grad_p (hydrostatic), or
+        update_dz_d -> Riem_Solver3 -> nh_p_grad (NH, dyn_core_nlm.F90:
+        762-880; pkz is the instantaneous NH equation of state)."""
         phis = consts["phis"]
         delp = halo.fill_halo_center(bc["delp"], topo)
         pt = halo.fill_halo_center(bc["pt"], topo)
-        zs_m = phis / GRAV
-        with scope("update_dz_d"):
-            zh_m, ws = update_dz_d(dt, dp_ref, zs_m, bc["zh"], bc["crx"],
-                                   bc["cry"], bc["xfx"], bc["yfx"],
-                                   cfg.hord_tm, grid, topo)
-        with scope("riem_3"):
-            sol = riem_solver3(dt, akap, ptop, zs_m, ws, pt, delp, zh_m,
-                               bc["w"], cfg.p_fac)
-        zh2 = halo.fill_halo_center(sol["zh"], topo)
-        pp = halo.fill_halo_center(sol["ppe"], topo)
-        gz = zh2 * GRAV
-        k1k = akap / (1.0 - akap)
-        rrg = -RGAS / GRAV
-        pkz = torch.exp(k1k * torch.log(torch.clamp(
-            rrg * delp / torch.clamp(sol["delz"], max=-1e-2)
-            * torch.clamp(pt, min=1e-10), min=1e-30)))
-        with scope("nh_p_grad"):
-            u, v = nh_p_grad(bc["u"], bc["v"], pp, gz, delp, sol["pk3"], dt,
-                             grid, npx, ptop, akap)
+        if cfg.hydrostatic:
+            with scope("geopk_d"):
+                pe, peln, pkc, gz, pkz = geopk(ptop, delp, pt, phis, akap)
+            with scope("one_grad_p"):
+                u, v = one_grad_p(bc["u"], bc["v"], pkc, gz, dt, grid, npx,
+                                  ptop, akap)
+            extra = {}
+            w = bc["w"]
+        else:
+            zs_m = phis / GRAV
+            with scope("update_dz_d"):
+                zh_m, ws = update_dz_d(dt, dp_ref, zs_m, bc["zh"], bc["crx"],
+                                       bc["cry"], bc["xfx"], bc["yfx"],
+                                       cfg.hord_tm, grid, topo)
+            with scope("riem_3"):
+                sol = riem_solver3(dt, akap, ptop, zs_m, ws, pt, delp, zh_m,
+                                   bc["w"], cfg.p_fac, use_kernel=use_kernel)
+            zh2 = halo.fill_halo_center(sol["zh"], topo)
+            pp = halo.fill_halo_center(sol["ppe"], topo)
+            gz = zh2 * GRAV
+            k1k = akap / (1.0 - akap)
+            rrg = -RGAS / GRAV
+            pkz = torch.exp(k1k * torch.log(torch.clamp(
+                rrg * delp / torch.clamp(sol["delz"], max=-1e-2)
+                * torch.clamp(pt, min=1e-10), min=1e-30)))
+            with scope("nh_p_grad"):
+                u, v = nh_p_grad(bc["u"], bc["v"], pp, gz, delp, sol["pk3"],
+                                 dt, grid, npx, ptop, akap)
+            pe, peln, pkc = sol["pe"], sol["peln"], sol["pk3"]
+            extra = dict(zh=zh2, delz=sol["delz"], ws=ws)
+            w = sol["w"]
         return dict(
-            u=u, v=v, w=sol["w"], delp=delp, pt=pt, uc=bc["uc"],
-            vc=bc["vc"], divgd=bc["divgd"],
+            u=u, v=v, w=w, delp=delp, pt=pt, uc=bc["uc"], vc=bc["vc"],
+            divgd=bc["divgd"],
             mfx=bc["mfx"], mfy=bc["mfy"], cx=bc["cx"], cy=bc["cy"],
             heat_source=bc["heat_source"],
-            pe=sol["pe"], peln=sol["peln"], pk=sol["pk3"], pkz=pkz,
-            zh=zh2, delz=sol["delz"], ws=ws,
+            pe=pe, peln=peln, pk=pkc, pkz=pkz, **extra,
         )
 
     def substep(c, consts):
@@ -307,7 +536,7 @@ def make_acoustic_substep(grid, topo, cfg, dt_remap, akap, ptop, npz, dtype,
 def acoustic_finish(state, carry, topo, cfg, npz):
     """Post-acoustic-loop work (dyn_core_nlm.F90:935-1100): D-edge single
     ownership fix.  Returns (state, vert).  The damping heat source is not
-    applied: it needs d_con > 0 (_n_con), which raises in this slice."""
+    applied: it needs d_con > 0 (_n_con), which raises."""
     if cfg.d_con > 1.0e-5 and _n_con(cfg, npz) != 0:
         raise NotImplementedError(
             "d_con heat source: ROADMAP Queue 1, remaining dynamics options")
@@ -316,17 +545,18 @@ def acoustic_finish(state, carry, topo, cfg, npz):
         state, u=u, v=v, w=carry["w"], delp=carry["delp"], pt=carry["pt"],
         uc=carry["uc"], vc=carry["vc"], divgd=carry["divgd"],
         mfx=carry["mfx"], mfy=carry["mfy"], cx=carry["cx"], cy=carry["cy"],
-        delz=carry["delz"], ws=carry["ws"],
     )
+    if "delz" in carry:
+        state.update(delz=carry["delz"], ws=carry["ws"])
     vert = dict(pk=carry["pk"], pe=carry["pe"], peln=carry["peln"],
                 pkz=carry["pkz"])
     return state, vert
 
 
 def dyn_core(state, grid, topo, cfg, dt_remap, akap, ptop, dp_ref):
-    """One mdt step = n_split acoustic substeps.  Returns the updated state
-    and pk/pe/peln/pkz from the final substep for the vertical remap.
-    (The omega diagnostic is hydrostatic-only in the JAX package too.)"""
+    """One mdt step = n_split trajectory acoustic substeps from the
+    interface state.  Returns the final carry (post_acoustic_stage of
+    core/fv_dynamics.py finishes it with acoustic_finish)."""
     dtype = state["u"].dtype
     npz = state["delp"].shape[0]
     substep = make_acoustic_substep(grid, topo, cfg, dt_remap, akap, ptop,
@@ -335,7 +565,7 @@ def dyn_core(state, grid, topo, cfg, dt_remap, akap, ptop, dp_ref):
     consts = dict(phis=state["phis"])
     for _ in range(cfg.n_split):
         carry = substep(carry, consts)
-    return acoustic_finish(state, carry, topo, cfg, npz)
+    return carry
 
 
 def _n_con(cfg, npz):

@@ -5,7 +5,8 @@ Counterpart of fv3jedi_lm_tpu/core/nh_core.py (model/nh_utils_nlm.F90):
 * `sim1_solver` (:1177-1310) — the plain PyTorch SIM1 semi-implicit solver,
   the k-recurrences as Python loops over k, columns batched on the
   trailing axis.  It is the reference for the CUDA kernel
-  (ops/cuda_sim1.py) and the path taken for tensors on the CPU.
+  (ops/cuda_sim1.py), the path taken for tensors on the CPU, and the
+  solver the tangent-linear and adjoint sweeps differentiate.
 * `riem_solver_c` (:297-404) and `riem_solver3` (:406-573) — the C- and
   D-grid wrappers around SIM1.
 * `edge_profile` (:1519-1614), `update_dz_c` (:43-181), `update_dz_d`
@@ -105,12 +106,14 @@ def sim1_solver(dt, dm2, pt2, pm2, pem, w2, dz2, ws, kappa, p_fac=0.05):
     return pe, w_new, torch.stack(dz)
 
 
-def _sim1(dt, dmg, pt2, pm2, pem, w2, dz2, ws2, akap, p_fac):
-    """SIM1 dispatch by the tensors' device: the hand-written CUDA kernel
-    for tensors on the GPU, the plain `sim1_solver` for tensors on the
-    CPU (the wrapper decides; there is no other switch)."""
-    return sim1_solver_cuda(dt, dmg, pt2, pm2, pem, w2, dz2, ws2, akap,
-                            p_fac)
+def _sim1(dt, dmg, pt2, pm2, pem, w2, dz2, ws2, akap, p_fac, use_kernel):
+    """SIM1 dispatch by mode, as the JAX package's (core/dyn_core.py:696):
+    the trajectory substep (`use_kernel`) calls the kernel wrapper, which
+    launches the CUDA kernel for tensors on the GPU and takes the plain
+    version for tensors on the CPU; the differentiated (mixed) substep
+    calls the plain `sim1_solver` directly on either device."""
+    fn = sim1_solver_cuda if use_kernel else sim1_solver
+    return fn(dt, dmg, pt2, pm2, pem, w2, dz2, ws2, akap, p_fac)
 
 
 def _rev_cumsum(x):
@@ -118,7 +121,8 @@ def _rev_cumsum(x):
     return torch.flip(torch.cumsum(torch.flip(x, [0]), dim=0), [0])
 
 
-def riem_solver_c(dt, akap, ptop, hs, w3, pt, delp, gz, ws, p_fac=0.05):
+def riem_solver_c(dt, akap, ptop, hs, w3, pt, delp, gz, ws, p_fac=0.05,
+                  use_kernel=True):
     """Riem_Solver_c (nh_utils_nlm.F90:297-404): C-grid semi-implicit
     solve on padded fields (npz[, +1], 6, jy, jx).  INPUT gz is height in
     meters (from update_dz_c), OUTPUT gz is height*grav anchored at hs.
@@ -141,7 +145,7 @@ def riem_solver_c(dt, akap, ptop, hs, w3, pt, delp, gz, ws, p_fac=0.05):
     dmg = dm / GRAV
 
     pe, w_new, dz_new = _sim1(dt, dmg, pt2, pm2, pem, w2, dz2, ws2,
-                              akap, p_fac)
+                              akap, p_fac, use_kernel)
 
     pef = pe + pem                     # full edge pressure; pe[0] = 0 -> ptop
     gz_new = torch.cat([hs2[None] - _rev_cumsum(dz_new * GRAV), hs2[None]])
@@ -150,7 +154,8 @@ def riem_solver_c(dt, akap, ptop, hs, w3, pt, delp, gz, ws, p_fac=0.05):
             w_new.reshape((km,) + shp))
 
 
-def riem_solver3(dt, akap, ptop, zs, ws, pt, delp, zh, w, p_fac=0.05):
+def riem_solver3(dt, akap, ptop, zs, ws, pt, delp, zh, w, p_fac=0.05,
+                 use_kernel=True):
     """Riem_Solver3 (nh_utils_nlm.F90:406-573), a_imp > 0.999 (the SIM1
     branch), USE_COND off, fp_out false (the only form dyn_core uses).
     Inputs padded (npz[, +1], 6, jy, jx); zh is HEIGHT in meters.  Returns
@@ -174,7 +179,7 @@ def riem_solver3(dt, akap, ptop, zs, ws, pt, delp, zh, w, p_fac=0.05):
     dz2 = torch.clamp(zh2[1:] - zh2[:-1], max=-1e-2)
 
     pe2, w_new, dz_new = _sim1(dt, dmg, pt2, pm2, pem, w2, dz2, ws2,
-                               akap, p_fac)
+                               akap, p_fac, use_kernel)
 
     zh_new = torch.cat([zs2[None] - _rev_cumsum(dz_new), zs2[None]])
 

@@ -3,7 +3,9 @@
 Counterpart of fv3jedi_lm_tpu/core/tracer2d.py: uses the dyn_core-
 accumulated courant numbers (cx, cy) and mass fluxes (mfx, mfy) with a
 static split count (q_split >= 1).  The tracers ride as one leading batch
-dimension through fv_tp_2d (the JAX package's vmap over tracers).
+dimension through fv_tp_2d (the JAX package's vmap over tracers), except
+under a frozen-branch tape, where each tracer is transported on its own so
+that its decisions are recorded in the JAX package's tape order.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import torch
 from ..ops.sw_core import F2P, SL
 from ..ops.transport import fv_tp_2d
 from ..parallel import halo
+from . import freeze
 from .freeze import fbool
 
 
@@ -61,13 +64,22 @@ def tracer_2d(q, dp1, mfx, mfy, cx, cy, grid, topo, cfg, npx, hord_tr,
                              * rarea[..., cs, cs])
         ra_x = area[..., :, cs] + (xfx[..., :, :-1] - xfx[..., :, 1:])
         ra_y = area[..., cs, :] + (yfx[..., :-1, :] - yfx[..., 1:, :])
-        qs = halo.fill_halo_center(qs, topo)     # a new tensor
-        fx, fy = fv_tp_2d(qs, cx, cy, hord_tr, xfx, yfx, grid, topo, ra_x,
-                          ra_y, mfx=mfx, mfy=mfy)
-        qs[..., cs, cs] = (
-            qs[..., cs, cs] * dp1[..., cs, cs]
-            + ((fx[..., :, :-1] - fx[..., :, 1:])
-               + (fy[..., :-1, :] - fy[..., 1:, :])) * rarea[..., cs, cs]
-        ) / dp2[..., cs, cs]
+        qs = halo.fill_halo_center(qs, topo)
+
+        def tp(qq):
+            return fv_tp_2d(qq, cx, cy, hord_tr, xfx, yfx, grid, topo, ra_x,
+                            ra_y, mfx=mfx, mfy=mfy)
+
+        if freeze.active():
+            fxl, fyl = zip(*[tp(qq) for qq in qs.unbind(0)])
+            fx, fy = torch.stack(fxl), torch.stack(fyl)
+        else:
+            fx, fy = tp(qs)
+        q_c = (qs[..., cs, cs] * dp1[..., cs, cs]
+               + ((fx[..., :, :-1] - fx[..., :, 1:])
+                  + (fy[..., :-1, :] - fy[..., 1:, :])) * rarea[..., cs, cs]
+               ) / dp2[..., cs, cs]
+        qs = qs.clone()
+        qs[..., cs, cs] = q_c
         dp1 = dp2
     return list(qs.unbind(0))

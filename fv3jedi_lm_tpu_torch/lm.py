@@ -1,17 +1,23 @@
-"""The linear-model facade, nonlinear trajectory step.
+"""The linear-model facade.
 
 Counterpart of fv3jedi_lm_tpu/lm.py (reference fv3jedi_lm_mod.F90: create
-:44, step_nl :148).  Trajectories are plain dicts of compute-domain
-tensors — u (npz,6,ny+1,nx), v (npz,6,ny,nx+1), t/delp/qv/ql/qi/o3/w/delz
-(npz,6,ny,nx), plus 2-D phis (6,ny,nx) — on the model's device.
+:44, step_nl :148, step_tl :161, step_ad :176).  Trajectories and
+perturbations are plain dicts of compute-domain tensors — u
+(npz,6,ny+1,nx), v (npz,6,ny,nx+1), t/delp/qv/ql/qi/o3[/w/delz]
+(npz,6,ny,nx), plus 2-D phis (6,ny,nx) on the trajectory — on the model's
+device.
 
-This slice ports the nonhydrostatic dynamics-only `step_nl`/`run_nl`; the
-tangent-linear and adjoint steps and the physics come with later slices.
+The dynamics-only steps are ported, hydrostatic and nonhydrostatic:
+`step_nl`/`run_nl`, and the staged tangent-linear `step_tl` and adjoint
+`step_ad` (core/staged.py), which linearize at the trajectory checkpoints
+and branch tapes that `_ckpts` stores per trajectory.  The physics raises.
 `traj_from_numpy`/`traj_to_numpy` carry states to and from dicts of numpy
 arrays (the form the JAX package's states take through np.asarray).
 """
 
 from __future__ import annotations
+
+from collections import OrderedDict
 
 import numpy as np
 import torch
@@ -24,6 +30,7 @@ from .grid.metrics import build_grid
 from .core.fv_dynamics import fv_dynamics
 from .grid.device import to_device
 from .parallel import halo
+from .timing import scope
 
 TRACERS = ("qv", "ql", "qi", "o3")  # ncnst=4 (fv3jedi_lm_dynamics_mod.F90:159-167)
 #: 2-D surface trajectory fields consumed by the physics, passed through
@@ -70,6 +77,12 @@ class LinearModel:
         self.ak = np.asarray(ak, np_dtype)
         self.bk = np.asarray(bk, np_dtype)
         self.ptop = float(ak[0])
+        self._stepper = None
+        # per-trajectory checkpoints and tapes (the reference's saveltraj
+        # cache, fv3jedi_lm_utils_mod.F90:30): the whole window's with
+        # saveltraj, else the most recent trajectory's
+        self._traj_cache = OrderedDict()
+        self._traj_cache_max = (cfg.nt + 1) if cfg.saveltraj else 1
 
     @classmethod
     def create(cls, cfg: LMConfig, device="cuda", ak=None, bk=None,
@@ -198,13 +211,58 @@ class LinearModel:
                 out[f] = traj[f]
         return out
 
+    def _staged(self):
+        if self._stepper is None:
+            from .core.staged import StagedStepper
+            self._stepper = StagedStepper(self)
+        return self._stepper
+
+    def _traj_token(self, traj):
+        """Cache key of a trajectory: the identities of its prognostic
+        tensors and phis, with the tensors themselves to pin them (a key
+        cannot be reused by another trajectory while its entry lives)."""
+        fields = self.prog_3d + ("phis",)
+        return (tuple(id(traj[k]) for k in fields),
+                tuple(traj[k] for k in fields))
+
+    def _ckpts(self, traj):
+        """The trajectory's stage checkpoints and branch tapes, cached by
+        the identity of its tensors."""
+        key, pins = self._traj_token(traj)
+        hit = self._traj_cache.get(key)
+        if hit is not None:
+            self._traj_cache.move_to_end(key)
+            return hit[1]
+        stepper = self._staged()
+        prog = {k: traj[k] for k in self.prog_3d}
+        with scope("ckpts.forward"):
+            _, cks = stepper.forward(prog, traj["phis"])
+        with scope("ckpts.record"):
+            tapes = stepper.record(cks)
+        self._traj_cache[key] = (pins, (cks, tapes))
+        while len(self._traj_cache) > self._traj_cache_max:
+            self._traj_cache.popitem(last=False)
+        return cks, tapes
+
     def step_tl(self, traj: dict, pert: dict) -> dict:
-        raise NotImplementedError(
-            "step_tl: ROADMAP Queue 1, staged TL/AD (tapes, mixed stages)")
+        """Tangent-linear step: pert' = M(traj) pert (fv3jedi_lm_mod.F90:
+        161), the per-stage jvp at the stored trajectory checkpoints with
+        the branch tapes replayed (core/staged.py)."""
+        prog = {k: traj[k] for k in self.prog_3d}
+        p = {k: pert[k].to(self.dtype) for k in self.prog_3d}
+        cks, tapes = self._ckpts(traj)
+        with scope("step_tl"):
+            return self._staged().tl(prog, traj["phis"], p, cks, tapes)
 
     def step_ad(self, traj: dict, pert_ad: dict) -> dict:
-        raise NotImplementedError(
-            "step_ad: ROADMAP Queue 1, staged TL/AD (tapes, mixed stages)")
+        """Adjoint step: pert_bar = M(traj)^T pert_ad (fv3jedi_lm_mod.F90:
+        176), the per-stage vjp at the same checkpoints and tapes as
+        step_tl, so <M dx, dy> == <dx, M^T dy> to rounding."""
+        prog = {k: traj[k] for k in self.prog_3d}
+        pb = {k: pert_ad[k].to(self.dtype) for k in self.prog_3d}
+        cks, tapes = self._ckpts(traj)
+        with scope("step_ad"):
+            return self._staged().ad(prog, traj["phis"], pb, cks, tapes)
 
     def run_nl(self, traj0: dict) -> list:
         """Propagate the window: returns [x_0, x_1, ..., x_nt]."""

@@ -25,9 +25,12 @@ and the flags, so an edit rebuilds it); ctypes loads it.  A failed build
 or launch raises.
 
 Dispatch: a tensor on the CPU takes the plain `sim1_solver`; a CUDA tensor
-launches the kernel or raises.  The solver is never differentiated on the
-trajectory path, so an input that requires grad raises (the TL/AD slice
-uses the plain `sim1_solver`, as the JAX package does).
+launches the kernel or raises.  The kernel has no derivative: the
+trajectory substep calls this wrapper, the differentiated (mixed) substep
+calls the plain `sim1_solver` (core/nh_core._sim1), as the JAX package
+does.  So an input that requires grad, or that carries a forward-mode
+tangent (`torch.autograd.forward_ad` or `torch.func.jvp`), raises on either
+device: the kernel would drop its derivative silently.
 """
 
 from __future__ import annotations
@@ -147,11 +150,22 @@ def plan(km: int, itemsize: int):
     return best[1]
 
 
+def _differentiated(t) -> bool:
+    """Whether `t` requires grad, carries a forward-mode tangent, or is
+    wrapped by a torch.func transform (jvp, vjp, grad, vmap)."""
+    if t.requires_grad:
+        return True
+    if torch._C._functorch.is_functorch_wrapped_tensor(t):
+        return True
+    return torch.autograd.forward_ad.unpack_dual(t).tangent is not None
+
+
 def _check(dm2, pt2, pm2, pem, w2, dz2, ws):
     ins = (dm2, pt2, pm2, pem, w2, dz2, ws)
-    if any(t.requires_grad for t in ins):
+    if any(_differentiated(t) for t in ins):
         raise ValueError("sim1_solver_cuda is not differentiable: an input "
-                         "requires grad")
+                         "requires grad or carries a tangent (the "
+                         "differentiated substep uses nh_core.sim1_solver)")
     if dm2.ndim != 2:
         raise ValueError(f"dm2 must be (km, B), got {tuple(dm2.shape)}")
     km, B = dm2.shape

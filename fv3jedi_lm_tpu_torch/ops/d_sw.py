@@ -1,8 +1,10 @@
 """D-grid Lin-Rood forward step (d_sw) and B-point wind advection (xtp_u/ytp_v).
 
 Counterpart of fv3jedi_lm_tpu/ops/d_sw.py (model/sw_core_nlm.F90: `d_sw`
-:492-1544, `xtp_u` :1970, `ytp_v` :2312), nonhydrostatic trajectory
-scheme: hord 8/9, no vorticity damping, no d_con heating.
+:492-1544, `xtp_u` :1970, `ytp_v` :2312): hydrostatic and
+nonhydrostatic, the trajectory schemes hord 8/9 and the perturbation
+schemes hord 1/2 (also as a per-level band, see ppm.xppm), with vorticity
+damping; d_con heating raises.
 
 Shapes (n cells/side, jc = n+2ng, jb = jc+1; leading dims broadcast):
   u, vt, divg_u : (..., 6, jb, jc)   rows = B lines, cols = cells
@@ -22,6 +24,7 @@ from ..core.freeze import fabs, fbool, fmax, fmin, fsign_mul, fwhere
 from ..parallel import halo
 from . import ppm
 from .a2b_edge import a2b_ord4
+from .ppm import C1, C2, C3, P1, P2
 from .sw_core import F2P, SL, del6_vt_flux
 from .transport import fv_tp_2d, mask_band
 
@@ -78,17 +81,71 @@ def _zero_ends(x):
     return out
 
 
+def _flux_low(q, cb, dxm, npx, A, qL, qR, rdxL, rdxR):
+    """The unlimited scheme (iord 2) with its face-edge fixes
+    (sw_core_nlm.F90 xtp_u iord < 8)."""
+    ic = A.size(q)
+    n = ic - 2 * NG
+    p = F2P
+    b0s = p(1)
+    z2 = A.zeros_like_w(q, 2)
+    al = A.cat([z2, P1 * (A.rng(q, 1, ic - 2) + A.rng(q, 2, ic - 1))
+                + P2 * (A.rng(q, 0, ic - 3) + A.rng(q, 3, ic)), z2])
+    bl = A.rng(al, 0, ic) - q
+    br = A.rng(al, 1, ic + 1) - q
+    # west edge fixes (cells 0, 1, 2 -> padded p(0)..p(2))
+    i1 = p(1)
+    xt = C3 * A.get(q, i1) + C2 * A.get(q, i1 + 1) + C1 * A.get(q, i1 + 2)
+    br_i1_a = xt - A.get(q, i1)
+    bl_i1p1 = xt - A.get(q, i1 + 1)
+    br_i1p1 = A.get(al, i1 + 3) - A.get(q, i1 + 1)
+    bl0 = (C1 * A.get(q, i1 - 3) + C2 * A.get(q, i1 - 2)
+           + C3 * A.get(q, i1 - 1) - A.get(q, i1 - 1))
+    xte = _edge_2sided(q, dxm, i1, A)
+    br0 = xte - A.get(q, i1 - 1)
+    bl1 = xte - A.get(q, i1)
+    # east edge (cells npx-2, npx-1, npx)
+    iN = p(npx - 2)
+    bl_iN = A.get(al, iN) - A.get(q, iN)
+    xt = C1 * A.get(q, iN - 1) + C2 * A.get(q, iN) + C3 * A.get(q, iN + 1)
+    br_iN = xt - A.get(q, iN)
+    bl_iNp1_a = xt - A.get(q, iN + 1)
+    xte = _edge_2sided(q, dxm, p(npx), A)
+    brN1 = xte - A.get(q, iN + 1)
+    blN2 = xte - A.get(q, iN + 2)
+    brN2 = (C3 * A.get(q, iN + 2) + C2 * A.get(q, iN + 3)
+            + C1 * A.get(q, iN + 4) - A.get(q, iN + 2))
+    bl = ppm.set_cols(bl, [(i1 - 1, _zero_ends(bl0)), (i1, _zero_ends(bl1)),
+                           (i1 + 1, bl_i1p1), (iN, bl_iN),
+                           (iN + 1, _zero_ends(bl_iNp1_a)),
+                           (iN + 2, _zero_ends(blN2))], A)
+    br = ppm.set_cols(br, [(i1 - 1, _zero_ends(br0)),
+                           (i1, _zero_ends(br_i1_a)), (i1 + 1, br_i1p1),
+                           (iN, br_iN), (iN + 1, _zero_ends(brN1)),
+                           (iN + 2, _zero_ends(brN2))], A)
+    b0 = bl + br
+    cflp = cb * rdxL
+    cfln = cb * rdxR
+    return fwhere(
+        cb > 0.0,
+        qL + (1.0 - cflp) * (A.rng(br, b0s - 1, b0s + n)
+                             - cflp * A.rng(b0, b0s - 1, b0s + n)),
+        qR + (1.0 + cfln) * (A.rng(bl, b0s, b0s + n + 1)
+                             + cfln * A.rng(b0, b0s, b0s + n + 1)),
+    )
+
+
 def _xtp_flux(q, cb, iord, dxm, rdxm, npx, A):
     """Advective flux of a D-grid wind component along its own line, iord
-    8/9 (sw_core_nlm.F90:2168-2306).
+    1, 2, 8 and 9 (sw_core_nlm.F90:1970-2306).
 
     Works along axis `A.ax` (-1 for xtp_u rows, -2 for ytp_v columns).
     q: cells, width jc along A.ax; cb: courant at B indices 1..npx;
     dxm/rdxm metric aligned with q.  Returns the flux, width n+1."""
-    if iord not in (8, 9):
+    if iord not in (1, 2, 8, 9):
         raise NotImplementedError(
-            f"xtp_u/ytp_v iord={iord!r}: only 8 and 9 are ported "
-            "(ROADMAP Queue 1: the other hords come with the TL/AD slice)")
+            f"xtp_u/ytp_v iord={iord!r}: only 1, 2, 8 and 9 are ported "
+            "(ROADMAP Queue 1, remaining dynamics options)")
     ic = A.size(q)
     n = ic - 2 * NG
     p = F2P
@@ -97,6 +154,10 @@ def _xtp_flux(q, cb, iord, dxm, rdxm, npx, A):
     qR = A.rng(q, b0s, b0s + n + 1)
     rdxL = A.rng(rdxm, b0s - 1, b0s + n)
     rdxR = A.rng(rdxm, b0s, b0s + n + 1)
+    if iord == 1:
+        return fwhere(cb > 0.0, qL, qR)
+    if iord == 2:
+        return _flux_low(q, cb, dxm, npx, A, qL, qR, rdxL, rdxR)
 
     qm1 = A.rng(q, 0, ic - 2)
     qp1 = A.rng(q, 2, ic)
@@ -197,7 +258,12 @@ def xtp_u(cb, u, dx, rdx, iord, npx):
     """Flux of u along x at B points (sw_core_nlm.F90:1970).
 
     cb: (..., jb, jb) courant (only B 1..npx read); u: (..., jb, jc).
-    Returns (..., npx, npx) flux at B points (j, i) in [1, npx]^2."""
+    Returns (..., npx, npx) flux at B points (j, i) in [1, npx]^2.
+    `iord` may be a per-level band (main, sponge, ksp), see ppm.xppm."""
+    if isinstance(iord, tuple):
+        main, sponge, ksp = iord
+        return torch.cat([xtp_u(cb[:ksp], u[:ksp], dx, rdx, sponge, npx),
+                          xtp_u(cb[ksp:], u[ksp:], dx, rdx, main, npx)])
     bs = SL(1, npx)
     return _xtp_flux(u[..., bs, :], cb[..., bs, bs], iord,
                      dx[..., bs, :], rdx[..., bs, :], npx, ppm._AXX)
@@ -206,6 +272,10 @@ def xtp_u(cb, u, dx, rdx, iord, npx):
 def ytp_v(cb, v, dy, rdy, jord, npx):
     """Flux of v along y at B points (sw_core_nlm.F90:2312): the same
     operator along axis -2."""
+    if isinstance(jord, tuple):
+        main, sponge, ksp = jord
+        return torch.cat([ytp_v(cb[:ksp], v[:ksp], dy, rdy, sponge, npx),
+                          ytp_v(cb[ksp:], v[ksp:], dy, rdy, main, npx)])
     bs = SL(1, npx)
     return _xtp_flux(v[..., :, bs], cb[..., bs, bs], jord,
                      dy[..., :, bs], rdy[..., :, bs], npx, ppm._AXY)
@@ -353,27 +423,33 @@ def d_sw(
     xflux, yflux, cx, cy,
     grid, topo, dt, npx,
     hord_mt, hord_vt, hord_tm, hord_dp,
-    kcoef,
+    kcoef, hydrostatic=False,
 ):
-    """One nonhydrostatic D-grid forward (large-dt) step for the whole npz
-    level batch.
+    """One D-grid forward (large-dt) step for the whole npz level batch.
 
     Returns a dict with updated fields, accumulated flux capacitors,
     advective courant/area fluxes, the saved B-grid divergence and the
     heat source (sw_core_nlm.F90:492-1544).  `kcoef` is the per-level
-    sponge-band damping configuration of dyn_core._kcoef."""
-    if kcoef["do_vort_damp"] or kcoef["d_con"] > 1.0e-5:
+    sponge-band damping configuration of dyn_core._kcoef (or _kcoef_pert).
+    Hydrostatic, w passes through untouched."""
+    if kcoef["d_con"] > 1.0e-5:
         raise NotImplementedError(
-            "d_sw vorticity damping / d_con heating: ROADMAP Queue 1, "
-            "remaining dynamics options")
+            "d_sw d_con heating: ROADMAP Queue 1, remaining dynamics options")
     nord = kcoef["nord"]
+    nord_v = kcoef["nord_v"]
+    nord_t = kcoef["nord_t"]
     nord_w = kcoef["nord_w"]
+    do_vort_damp = kcoef["do_vort_damp"]
     dddmp = kcoef["dddmp"]
     d4_bg = kcoef["d4_bg"]
     kgb = kcoef["ke_bg"]
     d2_divg_k = kcoef["d2_divg"]
+    damp_v_k = kcoef["damp_v"]
     damp_w_k = kcoef["damp_w"]
+    damp_t_k = kcoef["damp_t"]
     nord0_k = kcoef["nord0"]
+    nordv0_k = kcoef["nordv0"]
+    nordt0_k = kcoef["nordt0"]
     nordw0_k = kcoef["nordw0"]
     n = npx - 1
     npy = npx
@@ -403,6 +479,7 @@ def d_sw(
     divg_u = grid["divg_u"]
     divg_v = grid["divg_v"]
     da_min_c = grid["da_min_c"]
+    da_min = grid["da_min"]
 
     ut, vt = _contravariant_winds(uc, vc, grid, dt, npx)
 
@@ -432,34 +509,43 @@ def d_sw(
     # ---------------------------------------------------------------
     # delp / w / pt transport (:904-1032)
     # ---------------------------------------------------------------
+    if do_vort_damp:
+        damp_vk = (damp_v_k * da_min, (damp_v_k * da_min) ** (nord_v + 1),
+                   nord_v, nordv0_k)
+        damp_tk = (damp_t_k * da_min, (damp_t_k * da_min) ** (nord_t + 1),
+                   nord_t, nordt0_k)
+    else:
+        damp_vk = damp_tk = None
     fx, fy = fv_tp_2d(delp, crx, cry, hord_dp, xfx, yfx, grid, topo,
-                      ra_x, ra_y)
+                      ra_x, ra_y, damp_k=damp_vk)
 
     cx = cx + crx
     cy = cy + cry
     xflux = xflux + fx
     yflux = yflux + fy
 
-    dd8 = kgb * abs(dt)
-    _, fx2w, fy2w = _del6_vt_flux_masked(
-        nord_w,
-        (damp_w_k * da_min_c, (damp_w_k * da_min_c) ** (nord_w + 1)),
-        nordw0_k, w, grid, topo)
-    fxw_c = fx2w[..., cs, p(1):p(npx) + 1]
-    fyw_c = fy2w[..., p(1):p(npy) + 1, cs]
-    dw = ((fxw_c[..., :, :-1] - fxw_c[..., :, 1:])
-          + (fyw_c[..., :-1, :] - fyw_c[..., 1:, :])) * rarea[..., cs, cs]
-    heat_source = dd8 - dw * (w[..., cs, cs] + 0.5 * dw)
-    gxw, gyw = fv_tp_2d(w, crx, cry, hord_vt, xfx, yfx, grid, topo,
-                        ra_x, ra_y, mfx=fx, mfy=fy)
-    w_new = w.clone()
-    w_new[..., cs, cs] = (
-        delp[..., cs, cs] * w[..., cs, cs]
-        + ((gxw[..., :, :-1] - gxw[..., :, 1:])
-           + (gyw[..., :-1, :] - gyw[..., 1:, :])) * rarea[..., cs, cs])
+    if hydrostatic:
+        heat_source = delp.new_zeros(delp.shape[:-2] + (n, n))
+    else:
+        dd8 = kgb * abs(dt)
+        _, fx2w, fy2w = _del6_vt_flux_masked(
+            nord_w,
+            (damp_w_k * da_min_c, (damp_w_k * da_min_c) ** (nord_w + 1)),
+            nordw0_k, w, grid, topo)
+        fxw_c = fx2w[..., cs, p(1):p(npx) + 1]
+        fyw_c = fy2w[..., p(1):p(npy) + 1, cs]
+        dw = ((fxw_c[..., :, :-1] - fxw_c[..., :, 1:])
+              + (fyw_c[..., :-1, :] - fyw_c[..., 1:, :])) * rarea[..., cs, cs]
+        heat_source = dd8 - dw * (w[..., cs, cs] + 0.5 * dw)
+        gxw, gyw = fv_tp_2d(w, crx, cry, hord_vt, xfx, yfx, grid, topo,
+                            ra_x, ra_y, mfx=fx, mfy=fy)
+        w_num = (delp[..., cs, cs] * w[..., cs, cs]
+                 + ((gxw[..., :, :-1] - gxw[..., :, 1:])
+                    + (gyw[..., :-1, :] - gyw[..., 1:, :]))
+                 * rarea[..., cs, cs])
 
     gx, gy = fv_tp_2d(pt, crx, cry, hord_tm, xfx, yfx, grid, topo, ra_x,
-                      ra_y, mfx=fx, mfy=fy, mass=delp)
+                      ra_y, mfx=fx, mfy=fy, mass=delp, damp_k=damp_tk)
 
     delp_new = delp.clone()
     delp_new[..., cs, cs] += (((fx[..., :, :-1] - fx[..., :, 1:])
@@ -556,8 +642,10 @@ def d_sw(
     wk = rarea * ((vt_c[..., 0:jc, :] - vt_c[..., 1:jc + 1, :])
                   + (ut_c[..., :, 1:jc + 1] - ut_c[..., :, 0:jc]))
 
-    w_new[..., cs, cs] = w_new[..., cs, cs] / delp_new[..., cs, cs]
-    w_new[..., cs, cs] += dw
+    w_new = w
+    if not hydrostatic:
+        w_new = w.clone()
+        w_new[..., cs, cs] = w_num / delp_new[..., cs, cs] + dw
 
     # ---------------------------------------------------------------
     # divergence damping (:1297-1432)
@@ -699,16 +787,25 @@ def d_sw(
     vort_a = wk + f0
     fxv, fyv = fv_tp_2d(vort_a, crx, cry, hord_vt, xfx, yfx, grid, topo,
                         ra_x, ra_y)
+    u_c = (vt_c[..., bs, cs]
+           + (ke[..., bs, p(1):p(n) + 1] - ke[..., bs, p(2):p(npx) + 1])
+           + fyv)
+    v_c = (ut_c[..., cs, bs]
+           + (ke[..., p(1):p(n) + 1, bs] - ke[..., p(2):p(npy) + 1, bs])
+           - fxv)
+    if do_vort_damp:
+        # vorticity damping: diffusive fluxes added to the momentum
+        # (:1490-1494, 1533-1543)
+        _, fx2d, fy2d = _del6_vt_flux_masked(
+            nord_v,
+            (damp_v_k * da_min_c, (damp_v_k * da_min_c) ** (nord_v + 1)),
+            nordv0_k, wk, grid, topo)
+        u_c = u_c + fy2d[..., bs, cs]
+        v_c = v_c + (-fx2d[..., cs, bs])
     u_new = u.clone()
-    u_new[..., bs, cs] = (vt_c[..., bs, cs]
-                          + (ke[..., bs, p(1):p(n) + 1]
-                             - ke[..., bs, p(2):p(npx) + 1])
-                          + fyv)
+    u_new[..., bs, cs] = u_c
     v_new = v.clone()
-    v_new[..., cs, bs] = (ut_c[..., cs, bs]
-                          + (ke[..., p(1):p(n) + 1, bs]
-                             - ke[..., p(2):p(npy) + 1, bs])
-                          - fxv)
+    v_new[..., cs, bs] = v_c
 
     return dict(
         delp=delp_new, pt=pt_new, u=u_new, v=v_new, w=w_new,

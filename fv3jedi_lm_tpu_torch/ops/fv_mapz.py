@@ -1,4 +1,4 @@
-"""Vertical remapping (Lagrangian -> Eulerian), kord 8.
+"""Vertical remapping (Lagrangian -> Eulerian), kord 8 and 17.
 
 Counterpart of fv3jedi_lm_tpu/ops/fv_mapz.py (fv_mapz_nlm.F90).  The remap
 is expressed through the cumulative mass function of the piecewise-
@@ -9,8 +9,9 @@ parabolic reconstruction, evaluated at each target interface:
 with the source layer of each target interface found by one
 `torch.searchsorted` over a (ncol, k) contiguous layout.  The vertical
 edge reconstruction (cs_profile) is a per-column tridiagonal solve, written
-as Python loops over k, then the kord-8 limiters as selects.  The other
-kords (and mapn_tracer/fillz) come with later slices and raise.
+as Python loops over k, then the kord-8 limiters as selects; |kord| > 16
+is the perfectly linear scheme of the perturbation remap (kord 17).  The
+other kords (and mapn_tracer/fillz) come with later slices and raise.
 
 Vertical axis is LEADING everywhere in this module.
 """
@@ -123,26 +124,12 @@ def _cs_limiters(a1, a2, a3, a4, extm, iv):
             torch.where(mono, 0.0, a4n))
 
 
-def cs_profile(qs, a1, delp, iv, kord):
-    """Vertical PPM edge reconstruction (fv_mapz_nlm.F90:2113-2464), kord 8.
-
-    a1/delp: (km, ...) cell means / thicknesses; qs: (...) bottom value
-    (used for iv == -2).  Returns (a2, a3, a4) each (km, ...)."""
-    if abs(kord) != 8 or iv not in (1, 0, -1, -2):
-        raise NotImplementedError(
-            f"cs_profile kord={kord} iv={iv}: only kord 8 with iv 1, 0, -1, "
-            "-2 is ported (ROADMAP Queue 1: the perturbation kord 17 comes "
-            "with the TL/AD slice, the rest with the remaining options)")
+def _large_scale(q, a1, gam, iv):
+    """The large-scale constraints on the edge values q (km+1, ...)
+    (fv_mapz_nlm.F90:2205-2248), as a new tensor."""
     km = a1.shape[0]
-    if iv == -2:
-        q = _edge_tridiag_w(a1, delp, qs)
-    else:
-        q = _edge_tridiag(a1, delp)
-
-    # ---- large-scale constraints (:2205-2248) ----
-    # gam(k) = a1(k)-a1(k-1), k=2..km stored at index k-1
-    gam = torch.cat([torch.zeros_like(a1[:1]), a1[1:] - a1[:-1]])
-    q[1] = fclip(q[1], fmin(a1[0], a1[1]), fmax(a1[0], a1[1]))
+    q1 = fclip(q[1], fmin(a1[0], a1[1]), fmax(a1[0], a1[1]))
+    parts = [q[:1], q1[None]]
     if km > 3:   # interior k=3..km-1 (idx 2..km-2)
         qi = q[2:km - 1]
         a_km1 = a1[1:km - 2]
@@ -156,13 +143,63 @@ def cs_profile(qs, a1, delp, iv, kord):
         q_min = fmin(qi, fmax(a_km1, a_k))
         if iv == 0:
             q_min = fmax(0.0, q_min)
-        q[2:km - 1] = torch.where(smooth, q_cl,
-                                  torch.where(has_max, q_max, q_min))
-    q[km - 1] = fclip(q[km - 1], fmin(a1[km - 2], a1[km - 1]),
-                      fmax(a1[km - 2], a1[km - 1]))
+        parts.append(torch.where(smooth, q_cl,
+                                 torch.where(has_max, q_max, q_min)))
+    qb = fclip(q[km - 1], fmin(a1[km - 2], a1[km - 1]),
+               fmax(a1[km - 2], a1[km - 1]))
+    return torch.cat(parts + [qb[None], q[km:]])
 
-    a2 = q[:-1].clone()
-    a3 = q[1:].clone()
+
+def _huynh(a1i, a2i, a3i, gam, km):
+    """The interior (k=3..km-2) Huynh constraints of the kord < 9 family
+    (fv_mapz_nlm.F90:2266-2436): new (a2, a3, a4) of the interior."""
+    sl = slice(2, km - 2)
+    g_k = gam[sl]
+    g_m1 = gam[1:km - 3]
+    g_p1 = gam[3:km - 1]
+    g_p2 = gam[4:km]
+    pmp_1 = a1i - 2.0 * g_p1
+    lac_1 = pmp_1 + 1.5 * g_p2
+    a2n = fclip(a2i, fmin(fmin(a1i, pmp_1), lac_1),
+                fmax(fmax(a1i, pmp_1), lac_1))
+    pmp_2 = a1i + 2.0 * g_k
+    lac_2 = pmp_2 - 1.5 * g_m1
+    a3n = fclip(a3i, fmin(fmin(a1i, pmp_2), lac_2),
+                fmax(fmax(a1i, pmp_2), lac_2))
+    return a2n, a3n, 3.0 * (2.0 * a1i - (a2n + a3n))
+
+
+def cs_profile(qs, a1, delp, iv, kord):
+    """Vertical PPM edge reconstruction (fv_mapz_nlm.F90:2113-2464), kord 8
+    and the perfectly linear |kord| > 16 of the perturbation remap.
+
+    a1/delp: (km, ...) cell means / thicknesses; qs: (...) bottom value
+    (used for iv == -2).  Returns (a2, a3, a4) each (km, ...).  Nothing is
+    written in place (the reverse sweep differentiates through it): the
+    per-level fixes build new tensors from per-level lists, and the
+    helpers' temporaries die with them (the tracer remap sets the
+    nonlinear step's memory peak)."""
+    if not (abs(kord) == 8 or abs(kord) > 16) or iv not in (1, 0, -1, -2):
+        raise NotImplementedError(
+            f"cs_profile kord={kord} iv={iv}: only kord 8 and |kord| > 16 "
+            "with iv 1, 0, -1, -2 are ported (ROADMAP Queue 1, remaining "
+            "dynamics options)")
+    km = a1.shape[0]
+    if iv == -2:
+        q = _edge_tridiag_w(a1, delp, qs)
+    else:
+        q = _edge_tridiag(a1, delp)
+
+    if abs(kord) > 16:
+        a2 = q[:-1]
+        a3 = q[1:]
+        return a2, a3, 3.0 * (2.0 * a1 - (a2 + a3))
+
+    # gam(k) = a1(k)-a1(k-1), k=2..km stored at index k-1
+    gam = torch.cat([torch.zeros_like(a1[:1]), a1[1:] - a1[:-1]])
+    q = _large_scale(q, a1, gam, iv)
+    a2 = list(q[:-1].unbind(0))
+    a3 = list(q[1:].unbind(0))
 
     # extremum detection (:2250-2261)
     extm_mid = gam[1:-1] * gam[2:] < 0.0
@@ -176,7 +213,8 @@ def cs_profile(qs, a1, delp, iv, kord):
     elif iv == -1:
         a2[0] = fwhere(a2[0] * a1[0] <= 0.0, 0.0, a2[0])
 
-    a4 = 3.0 * (2.0 * a1 - (a2 + a3))
+    a4 = list((3.0 * (2.0 * a1 - (torch.stack(a2) + torch.stack(a3))))
+              .unbind(0))
 
     def limit(k, lim):
         a2[k], a3[k], a4[k] = _cs_limiters(a1[k], a2[k], a3[k], a4[k],
@@ -185,28 +223,15 @@ def cs_profile(qs, a1, delp, iv, kord):
     limit(0, 1)
     limit(1, 2)
 
-    # interior k=3..km-2 (idx 2..km-3): Huynh constraints, kord < 9 family
+    # interior k=3..km-2 (idx 2..km-3); its edges are still those of q
     if km > 4:
         sl = slice(2, km - 2)
-        a1i, a2i, a3i = a1[sl], a2[sl], a3[sl]
-        g_k = gam[sl]
-        g_m1 = gam[1:km - 3]
-        g_p1 = gam[3:km - 1]
-        g_p2 = gam[4:km]
-        pmp_1 = a1i - 2.0 * g_p1
-        lac_1 = pmp_1 + 1.5 * g_p2
-        a2n = fclip(a2i, fmin(fmin(a1i, pmp_1), lac_1),
-                    fmax(fmax(a1i, pmp_1), lac_1))
-        pmp_2 = a1i + 2.0 * g_k
-        lac_2 = pmp_2 - 1.5 * g_m1
-        a3n = fclip(a3i, fmin(fmin(a1i, pmp_2), lac_2),
-                    fmax(fmax(a1i, pmp_2), lac_2))
-        a4n = 3.0 * (2.0 * a1i - (a2n + a3n))
+        a2n, a3n, a4n = _huynh(a1[sl], q[2:km - 2], q[3:km - 1], gam, km)
         if iv == 0:
-            a2n, a3n, a4n = _cs_limiters(a1i, a2n, a3n, a4n, extm[sl], 0)
-        a2[sl] = a2n
-        a3[sl] = a3n
-        a4[sl] = a4n
+            a2n, a3n, a4n = _cs_limiters(a1[sl], a2n, a3n, a4n, extm[sl], 0)
+        a2[sl] = a2n.unbind(0)
+        a3[sl] = a3n.unbind(0)
+        a4[sl] = a4n.unbind(0)
 
     # bottom two layers (:2437-2463)
     if iv == 0:
@@ -216,7 +241,7 @@ def cs_profile(qs, a1, delp, iv, kord):
     for k, lim in ((km - 2, 2), (km - 1, 1)):
         a4[k] = 3.0 * (2.0 * a1[k] - (a2[k] + a3[k]))
         limit(k, lim)
-    return a2, a3, a4
+    return torch.stack(a2), torch.stack(a3), torch.stack(a4)
 
 
 # ----------------------------------------------------------------------

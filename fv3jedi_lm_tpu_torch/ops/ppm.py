@@ -1,9 +1,10 @@
-"""PPM flux operators (xppm / yppm) for FV transport, iord 8 and 9.
+"""PPM flux operators (xppm / yppm) for FV transport, iord 1, 2, 8 and 9.
 
 Counterpart of fv3jedi_lm_tpu/ops/ppm.py (model/tp_core_nlm.F90:291-951).
-The trajectory step uses hord 9 for the dynamics and hord_tr 8 for the
-tracers (config.py defaults), so this slice ports the monotone family
-8/9; the other schemes raise until the TL/AD slice needs them.
+The trajectory uses hord 9 for the dynamics and hord_tr 8 for the tracers;
+the linearization's perturbation scheme uses hord 2 (unlimited PPM) and
+hord 1 (first-order upwind) in the perturbation sponge levels (config.py
+defaults).  The other schemes raise.
 
 The operator works along a chosen axis (`ax` = -1 for xppm, -2 for yppm)
 with no transposes.  q is a padded center tensor of width IC = n + 2*ng
@@ -19,6 +20,11 @@ from .. import NG
 from ..core.freeze import fabs, fmax, fmin, fsign_mul, fwhere
 
 # reconstruction coefficients (tp_core_nlm.F90:40-70)
+P1 = 7.0 / 12.0
+P2 = -1.0 / 12.0
+C1 = -2.0 / 14.0
+C2 = 11.0 / 14.0
+C3 = 5.0 / 14.0
 S11 = 11.0 / 14.0
 S14 = 4.0 / 7.0
 S15 = 3.0 / 14.0
@@ -111,6 +117,31 @@ def pert_ppm(a0, al, ar, iv):
     ar_n = fwhere(a6da < -da2, -2.0 * al, ar)
     al_n = fwhere(a6da > da2, -2.0 * ar, al)
     return fwhere(opp, al_n, 0.0), fwhere(opp, ar_n, 0.0)
+
+
+def _bl_br_low(q, dxa, A: _Ax):
+    """bl/br of the unlimited scheme (iord 2) with the cubed-sphere face-edge
+    interface overrides (tp_core_nlm.F90:341-369); cell-aligned."""
+    ic = A.size(q)
+    n = ic - 2 * NG
+    z = A.zeros_like_w(q, 2)
+    al = A.cat([z, P1 * (A.rng(q, 1, ic - 2) + A.rng(q, 2, ic - 1))
+                + P2 * (A.rng(q, 0, ic - 3) + A.rng(q, 3, ic)), z])
+    e_w = NG          # west face edge index
+    e_e = NG + n      # east face edge
+    al = set_cols(al, [
+        (e_w - 1, C1 * A.get(q, e_w - 3) + C2 * A.get(q, e_w - 2)
+         + C3 * A.get(q, e_w - 1)),
+        (e_w, _edge_interp(q, dxa, e_w, A)),
+        (e_w + 1, C3 * A.get(q, e_w) + C2 * A.get(q, e_w + 1)
+         + C1 * A.get(q, e_w + 2)),
+        (e_e - 1, C1 * A.get(q, e_e - 3) + C2 * A.get(q, e_e - 2)
+         + C3 * A.get(q, e_e - 1)),
+        (e_e, _edge_interp(q, dxa, e_e, A)),
+        (e_e + 1, C3 * A.get(q, e_e) + C2 * A.get(q, e_e + 1)
+         + C1 * A.get(q, e_e + 2)),
+    ], A)
+    return A.rng(al, 0, ic) - q, A.rng(al, 1, ic + 1) - q
 
 
 def _bl_br_high(q, dxa, iord, A: _Ax):
@@ -231,17 +262,33 @@ def _flux_from_blbr(q, c, bl, br, e0, e1, A: _Ax):
 def xppm(q, c, iord, dxa, ax: int = -1):
     """PPM flux along axis `ax`.  q: padded width IC along ax; c: courant
     at the compute edges [NG, NG+n+1) along ax.  Returns the flux, width
-    n+1 along ax."""
-    if iord not in (8, 9):
+    n+1 along ax.
+
+    `iord` may be a per-level blend `(iord_main, iord_sponge, ksp)` with
+    ksp a static int: levels [0, ksp) use the sponge scheme (the
+    linearization's perturbation sponge override, dyn_core_tlm.F90:
+    861-875); the level batch is split so each scheme runs once on its own
+    band."""
+    if isinstance(iord, tuple):
+        main, sponge, ksp = iord
+        return torch.cat([xppm(q[:ksp], c[:ksp], sponge, dxa, ax),
+                          xppm(q[ksp:], c[ksp:], main, dxa, ax)], dim=0)
+    if iord not in (1, 2, 8, 9):
         raise NotImplementedError(
-            f"xppm iord={iord!r}: only 8 and 9 are ported "
-            "(ROADMAP Queue 1: the other hords come with the TL/AD slice)")
+            f"xppm iord={iord!r}: only 1, 2, 8 and 9 are ported (ROADMAP "
+            "Queue 1, remaining dynamics options)")
     A = _AXX if ax == -1 else _AXY
     n = A.size(q) - 2 * NG
     if A.size(c) != n + 1:
         raise ValueError(f"courant width {A.size(c)} != {n + 1}")
-    bl, br = _bl_br_high(q, dxa, iord, A)
-    return _flux_from_blbr(q, c, bl, br, NG, NG + n + 1, A)
+    e0, e1 = NG, NG + n + 1
+    if iord == 1:
+        return fwhere(c > 0.0, A.rng(q, e0 - 1, e1 - 1), A.rng(q, e0, e1))
+    if iord == 2:
+        bl, br = _bl_br_low(q, dxa, A)
+    else:
+        bl, br = _bl_br_high(q, dxa, iord, A)
+    return _flux_from_blbr(q, c, bl, br, e0, e1, A)
 
 
 def yppm(q, c, jord, dya):

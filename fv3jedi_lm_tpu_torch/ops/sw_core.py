@@ -357,10 +357,11 @@ def del6_vt_flux(nord, damp, q, grid, topo):
 # c_sw: C-grid Lin-Rood half step (sw_core_nlm.F90:77-489)
 # ----------------------------------------------------------------------
 
-def c_sw(delp, pt, u, v, w, uc, vc, grid, dt2, nord, npx):
-    """Nonhydrostatic C-grid half-step on halo-filled padded fields.  uc/vc
-    are replaced by d2a2c_vect's winds (as in the reference).  Returns
-    (delpc, ptc, wc, uc_new, vc_new, divg_d, ua, va, ut, vt)."""
+def c_sw(delp, pt, u, v, w, uc, vc, grid, dt2, nord, npx, hydrostatic=False):
+    """C-grid half-step on halo-filled padded fields.  uc/vc are replaced
+    by d2a2c_vect's winds (as in the reference).  Returns
+    (delpc, ptc, wc, uc_new, vc_new, divg_d, ua, va, ut, vt); hydrostatic,
+    w is not transported and wc is zero."""
     n = npx - 1
     npy = npx
     jc = n + 2 * NG
@@ -416,8 +417,9 @@ def c_sw(delp, pt, u, v, w, uc, vc, grid, dt2, nord, npx):
     fx1[..., :, 1:jc] = ut[..., :, 1:jc] * upx(delp_x)
     fx = torch.zeros_like(ut)
     fx[..., :, 1:jc] = fx1[..., :, 1:jc] * upx(pt_x)
-    fx2 = torch.zeros_like(ut)
-    fx2[..., :, 1:jc] = fx1[..., :, 1:jc] * upx(fill_4corners(w, 1, npx))
+    if not hydrostatic:
+        fx2 = torch.zeros_like(ut)
+        fx2[..., :, 1:jc] = fx1[..., :, 1:jc] * upx(fill_4corners(w, 1, npx))
 
     delp_y = fill_4corners(delp, 2, npx)
     pt_y = fill_4corners(pt, 2, npx)
@@ -430,8 +432,9 @@ def c_sw(delp, pt, u, v, w, uc, vc, grid, dt2, nord, npx):
     fy1[..., 1:jc, :] = vt[..., 1:jc, :] * upy(delp_y)
     fy = torch.zeros_like(vt)
     fy[..., 1:jc, :] = fy1[..., 1:jc, :] * upy(pt_y)
-    fy2 = torch.zeros_like(vt)
-    fy2[..., 1:jc, :] = fy1[..., 1:jc, :] * upy(fill_4corners(w, 2, npx))
+    if not hydrostatic:
+        fy2 = torch.zeros_like(vt)
+        fy2[..., 1:jc, :] = fy1[..., 1:jc, :] * upy(fill_4corners(w, 2, npx))
 
     # cell updates over [is-1, ie+1]^2 = cells 0..n+1
     cs = slice(p(0), p(n + 1) + 1)
@@ -450,8 +453,9 @@ def c_sw(delp, pt, u, v, w, uc, vc, grid, dt2, nord, npx):
     ptc = torch.zeros_like(pt)
     ptc[..., cs, cs] = (pt[..., cs, cs] * delp[..., cs, cs] + divt) / delpc_i
     wc = torch.zeros_like(w)
-    wc[..., cs, cs] = (w[..., cs, cs] * delp[..., cs, cs] + div(fx2, fy2)) \
-        / delpc_i
+    if not hydrostatic:
+        wc[..., cs, cs] = (w[..., cs, cs] * delp[..., cs, cs]
+                           + div(fx2, fy2)) / delpc_i
 
     # ---- kinetic energy (sw_core_nlm.F90:286-365), cells 0..n+1 ----
     ke_pos = uc[..., cs, p(0):p(n + 1) + 1].clone()   # uc(i,j)

@@ -30,7 +30,8 @@ def fv_tp_2d(q, crx, cry, hord, xfx, yfx, grid, topo, ra_x, ra_y,
     """2-D PPM transport; optional del-n damping, selected either by the
     scalar `nord`/`damp_c` or by the per-level
     `damp_k=(damp4_0_k, damp4_n_k, nord_n, nord0_mask)` (the sponge bands
-    of dyn_core_nlm.F90:536-630)."""
+    of dyn_core_nlm.F90:536-630).  `hord` may be a per-level blend
+    `(main, sponge, ksp)` (see ppm.xppm)."""
     n = q.shape[-1] - 2 * NG
     dxa = grid["dxa"]
     dya = grid["dya"]

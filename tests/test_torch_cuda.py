@@ -1,4 +1,5 @@
-"""The SIM1 CUDA kernel against its plain PyTorch version, on the card.
+"""The SIM1 CUDA kernel against its plain PyTorch version, and the TL/AD
+pair on the GPU against the CPU, on the card.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 GPU host without JAX, from the repo root:
@@ -14,12 +15,19 @@ km = 2, 10, 72 and 127 in both dtypes a ragged B on the 16-byte copy path
 (1004), a ragged B on the element copy path (1001) and a B under one tile
 (5).  float32 must equal the plain version bit for bit (the kernel keeps
 its operation order and rounding); float64 is held to rtol = atol = 1e-12.
+
+The TL/AD check is chip_smoke.py's phase_tlad_small at c12L10 float64,
+hydrostatic and nonhydrostatic: step_tl/step_ad on the GPU equal the CPU's
+to 1e-10 relative norm per field, the dot-product identity holds below
+1e-12 on the card, and SIM1's kernel runs 2 x n_split times in the
+nonhydrostatic `forward` and never in the differentiated stages.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from fv3jedi_lm_tpu_torch.constants import GRAV, KAPPA, RGAS
 from fv3jedi_lm_tpu_torch.core import nh_core
 from fv3jedi_lm_tpu_torch.ops import cuda_sim1
@@ -66,3 +74,22 @@ def test_cuda_kernel_matches_plain_on_card(dtype, km, ncol):
         else:
             torch.testing.assert_close(b, a, rtol=1e-12, atol=1e-12,
                                        msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(chip_smoke.TLAD_SMALL))
+def test_tlad_gpu_matches_cpu(name):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    kw = chip_smoke.TLAD_SMALL[name]
+    res = chip_smoke.tlad_devices(kw)
+    for sweep in ("tl", "ad"):
+        for k, want in res["cpu"][sweep].items():
+            got = res["cuda"][sweep][k]
+            assert np.isfinite(got).all(), (sweep, k)
+            rel = np.linalg.norm(got - want) / np.linalg.norm(want)
+            assert rel <= 1e-10, (sweep, k, rel)
+    assert res["cuda"]["dot"] < 1e-12, res["cuda"]["dot"]
+    want_fwd = 0 if kw.get("hydrostatic", True) else 2 * kw["n_split"]
+    assert res["cuda"]["fwd_launches"] == want_fwd
+    assert res["cuda"]["mixed_launches"] == 0

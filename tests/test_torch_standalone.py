@@ -26,6 +26,7 @@ from fv3jedi_lm_tpu_torch import constants as port_constants
 from fv3jedi_lm_tpu_torch.grid import eta as port_eta
 from fv3jedi_lm_tpu_torch.grid import metrics as port_metrics
 from test_torch_d_sw import D_SW_KW
+from test_torch_hydro import D_SW_KW as HYDRO_D_SW_KW
 from test_torch_step_nl import NH_KW as STEP_NL_KW
 
 torch.set_num_threads(1)
@@ -155,8 +156,12 @@ def test_topology_connectivity_matches(grids, npx):
 
 #: the configurations the port's tests and chip_smoke.py build models from
 CONFIGS = {"step_nl": STEP_NL_KW, "d_sw": D_SW_KW,
+           "hydro_d_sw": HYDRO_D_SW_KW,
            "chip_smoke_small": chip_smoke.SMALL_KW,
-           "chip_smoke_c96L72": chip_smoke.FULL_KW}
+           "chip_smoke_c96L72": chip_smoke.FULL_KW,
+           "chip_smoke_tlad_c96L72": chip_smoke.TLAD_FULL_KW,
+           **{f"chip_smoke_tlad_{k}": v
+              for k, v in chip_smoke.TLAD_SMALL.items()}}
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))

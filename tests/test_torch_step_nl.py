@@ -115,13 +115,14 @@ def test_rest_state_stays_at_rest():
 
 
 def test_unported_options_raise():
-    lm = LinearModel.create(CFG, device="cpu")
+    """What the port does not run yet raises, naming its ROADMAP item:
+    the physics, and a dynamics option (beta) outside the slices."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lm.step_tl(lm.rest_traj(), lm.zero_pert())
-    hyd = LinearModel.create(CFG.replace(dyn=CFG.dyn.replace(
-        hydrostatic=True)), device="cpu")
-    with pytest.raises(NotImplementedError, match="hydrostatic"):
-        hyd.step_nl(hyd.rest_traj())
+        LinearModel.create(CFG.replace(do_phy_trb=True), device="cpu")
+    beta = LinearModel.create(CFG.replace(dyn=CFG.dyn.replace(beta=0.5)),
+                              device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        beta.step_nl(beta.rest_traj())
 
 
 _NO_JAX = r"""
