@@ -14,10 +14,16 @@ tangent-linear and adjoint pair (LinearModel.step_tl + step_ad): on the
 GPU against the CPU at c12L10 float64, hydrostatic and nonhydrostatic,
 with the dot-product identity and SIM1's launches by mode; timed at
 c96L72 float32 hydrostatic (the bench.py configuration); and one warm
-pair under torch.profiler.  Each phase raises on failure.  The last two
-lines of standard output are a JSON line describing the kernels and a
-JSON status line.  Without a CUDA device the script exits non-zero and
-prints no result.  It imports neither JAX nor the JAX package.
+pair under torch.profiler.  Then the same pair with the GEOS physics on
+(boundary-layer turbulence and RAS/cloud moist physics): on the GPU
+against the CPU at c8L12 float64, moist modes 1 and 2 with the
+turbulence, with the dot-product identity; timed at c96L72 float32
+hydrostatic with moist mode 1 and the turbulence on a convective
+sounding; and one warm pair under torch.profiler with the physics' own
+scopes.  Each phase raises on failure.  The last two lines of standard
+output are a JSON line describing the kernels and a JSON status line.
+Without a CUDA device the script exits non-zero and prints no result.  It
+imports neither JAX nor the JAX package.
 """
 
 from __future__ import annotations
@@ -56,10 +62,21 @@ TLAD_SMALL = {
 #: linearization (pert hord 2, kord 17, pert sponge, vorticity damping)
 TLAD_FULL_KW = dict(npx=97, npy=97, npz=72, n_split=6, k_split=1,
                     d2_bg_k1=0.2, d2_bg_k2=0.1, n_sponge=6, dtype="float32")
-#: the perturbation scales of tests/test_lm.py and tests/test_nh_e2e.py
-#: `_rand_pert`
+#: the perturbation scales of tests/test_lm.py, tests/test_nh_e2e.py and
+#: tests/test_moist.py `_rand_pert`
 PERT_SCALE = dict(u=1.0, v=1.0, t=1.0, delp=10.0, qv=1e-4, ql=1e-6,
-                  qi=1e-6, o3=1e-7, w=0.1, delz=1.0)
+                  qi=1e-6, o3=1e-7, w=0.1, delz=1.0, cfcn=1e-3)
+#: c8L12 float64 of the physics check: tests/test_moist.py's configuration
+#: and its troposphere-heavy hybrid coordinate (only the top 2 interfaces
+#: above 30 hPa, so deep convection is geometrically possible)
+PHYS_SMALL_KW = dict(npx=9, npy=9, npz=12, n_split=1, k_split=1,
+                     d2_bg_k1=0.2, d2_bg_k2=0.1, n_sponge=2,
+                     n_sponge_pert=3, d2_bg_k1_pert=0.2, d2_bg_k2_pert=0.1,
+                     d2_bg_ks_pert=0.1)
+PHYS_PREF = np.array([30., 1500., 4000., 8000., 14000., 22000., 32000.,
+                      44000., 57000., 71000., 85000., 93000., 100000.])
+PHYS_BK = np.clip((PHYS_PREF - 20000.0) / (1.0e5 - 20000.0), 0.0, 1.0)
+PHYS_AK = PHYS_PREF - PHYS_BK * 1.0e5
 #: SIM1 at c96L72: 72 levels, 6 faces of 102 x 102 padded columns
 KM, B_FULL = 72, 6 * 102 * 102
 #: (dtype, km, B) of the kernel check, as tests/test_torch_cuda.py
@@ -250,6 +267,92 @@ def tlad_devices(kw, devices=("cuda", "cpu")):
         out[dev] = dict(tl=traj_to_numpy(mdx), ad=traj_to_numpy(mtdy),
                         dot=abs(lhs - rhs) / max(abs(lhs), 1e-300),
                         fwd_launches=fwd[0], mixed_launches=mixed)
+    return out
+
+
+def moist_traj(tr, n, npz, rng, asarray):
+    """tests/test_moist.py's convective sounding into the trajectory dict
+    `tr`, drawing from `rng` in that file's order: a cold top (~225 K) and
+    a warm moist surface with noise, ts, a random land mask, the cloud
+    base at the lowest level, and condensate and convective cloud fraction
+    on a Gaussian profile at 0.7 npz.  `asarray` makes the package's
+    arrays."""
+    ks = np.arange(npz)[:, None, None, None]
+    sh = (npz, 6, n, n)
+    tr["t"] = asarray(225.0 + 75.0 * (ks / (npz - 1.0)) ** 1.2
+                      + 1.5 * rng.standard_normal(sh))
+    qv = 0.018 * np.exp(-3.0 * (1.0 - ks / (npz - 1.0)))
+    tr["qv"] = asarray(np.clip(qv * (1.0 + 0.2 * rng.standard_normal(sh)),
+                               1e-7, None))
+    tr["ts"] = asarray(305.0 + rng.standard_normal((6, n, n)))
+    tr["frland"] = asarray((rng.random((6, n, n)) > 0.5) * 1.0)
+    tr["kcbl"] = asarray(np.full((6, n, n), float(npz - 1)))
+    prof = np.exp(-0.5 * ((ks - 0.7 * npz) / (0.15 * npz)) ** 2)
+    tr["qls"] = asarray(4e-5 * prof * (1.0 + 0.3 * rng.random(sh)))
+    tr["qcn"] = asarray(3e-5 * prof * (1.0 + 0.3 * rng.random(sh)))
+    tr["cfcn"] = asarray(0.1 * prof * np.ones(sh))
+    return tr
+
+
+def turb_sfc(n, rng):
+    """tests/test_turbulence.py's surface exchange and stability fields,
+    drawn from `rng` in that file's order, as numpy."""
+    sfc = dict(ustar=0.2 + 0.1 * rng.random((6, n, n)),
+               bstar=0.02 * rng.standard_normal((6, n, n)),
+               cm=0.01 * rng.random((6, n, n)),
+               ct=0.01 * rng.random((6, n, n)),
+               cq=0.01 * rng.random((6, n, n)),
+               frocean=(rng.random((6, n, n)) > 0.3) * 1.0)
+    sfc["frland"] = 1.0 - sfc["frocean"]
+    sfc["varflt"] = 100.0 * rng.random((6, n, n))
+    sfc["zpbl"] = 500.0 + 500.0 * rng.random((6, n, n))
+    return sfc
+
+
+def phys_small_traj(lm):
+    """tests/test_moist.py's `traj` (seed 7) with tests/test_turbulence.py's
+    surface fields (seed 3), on `lm`'s device."""
+    as_t = lambda a: torch.as_tensor(np.asarray(a), dtype=lm.dtype,
+                                     device=lm.device)
+    n, npz = lm.cfg.dyn.nx, lm.cfg.dyn.npz
+    tr = moist_traj(lm.rest_traj(t0=285.0), n, npz,
+                    np.random.default_rng(7), as_t)
+    tr.update({k: as_t(v)
+               for k, v in turb_sfc(n, np.random.default_rng(3)).items()})
+    return tr
+
+
+def phys_devices(mode, devices=("cuda", "cpu")):
+    """step_nl(traj), step_tl(traj, rand_pert(1)) and step_ad(traj,
+    rand_pert(2)) at PHYS_SMALL_KW float64 with the turbulence and moist
+    mode `mode`, on each device from the same numbers.  Returns {device:
+    dict(nl, tl, ad (numpy), dot (the identity's relative error, counting
+    cfcn), doconvec (convecting columns), sim1 (SIM1 kernel launches))}."""
+    from fv3jedi_lm_tpu_torch.config import DynConfig, LMConfig
+    from fv3jedi_lm_tpu_torch.lm import LinearModel, traj_to_numpy
+    from fv3jedi_lm_tpu_torch.ops.cuda_sim1 import sim1_solver_cuda
+
+    cfg = LMConfig(dyn=DynConfig(**PHYS_SMALL_KW), dt=450.0, do_phy_trb=True,
+                   do_phy_mst=mode)
+    out = {}
+    for dev in devices:
+        lm = LinearModel.create(cfg, device=dev, ak=PHYS_AK, bk=PHYS_BK)
+        tr = phys_small_traj(lm)
+        dx, dy = rand_pert(lm, 1), rand_pert(lm, 2)
+        sim1_solver_cuda.launches = 0
+        nl = lm.step_nl(tr)
+        mdx = lm.step_tl(tr, dx)
+        mtdy = lm.step_ad(tr, dy)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        lhs = dot(mdx, dy, lm.prog_3d)
+        rhs = dot(dx, mtdy, lm.prog_3d)
+        out[dev] = dict(
+            nl={k: nl[k].cpu().numpy() for k in lm.prog_3d},
+            tl=traj_to_numpy(mdx), ad=traj_to_numpy(mtdy),
+            dot=abs(lhs - rhs) / max(abs(lhs), 1e-300),
+            doconvec=int(lm._ckpts(tr)[2][0]["doconvec"].sum()),
+            sim1=sim1_solver_cuda.launches)
     return out
 
 
@@ -610,62 +713,296 @@ TLAD_SCOPES = ("tl.prep", "tl.pre", "tl.substep", "tl.post", "ad.post",
                "remap")
 
 
-def phase_tlad_profile(lm, traj, pert, best):
-    """One warm c96L72 pair under torch.profiler: its kernel launches,
-    kernel time and busy share, and the kernel and host time by scope."""
-    from torch.profiler import ProfilerActivity, profile
+class _RawProfile(torch.autograd.profiler.profile):
+    """torch.autograd.profiler.profile that keeps the raw Kineto events
+    and does not build the FunctionEvent tree from them, which takes
+    minutes for the million events of a pair."""
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    def _parse_kineto_results(self, result):
+        return []
+
+
+def profile_pair(lm, traj, pert, scopes):
+    """One step_tl + step_ad(traj, tl) under the profiler: (profiled wall
+    s, device events, device us, {scope: dict(calls, launches, dev_us,
+    host_us)}).  A scope's device events are those of the operators that
+    start inside it, matched by the Kineto correlation id; its host time
+    is the scope's own duration."""
+    import bisect
+
+    with _RawProfile(use_device="cuda", use_kineto=True) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         tl = lm.step_tl(traj, pert)
         lm.step_ad(traj, tl)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    n_kernels, kernel_us = 0, 0.0
-    dev_us, host_us, calls = {}, {}, {}
-    for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            if not getattr(evt, "is_user_annotation", False):
-                n_kernels += 1
-                kernel_us += evt.device_time_total
-        elif evt.name in TLAD_SCOPES:
-            dev_us[evt.name] = (dev_us.get(evt.name, 0.0)
-                                + evt.device_time_total)
-            host_us[evt.name] = host_us.get(evt.name, 0.0) + evt.cpu_time_total
-            calls[evt.name] = calls.get(evt.name, 0) + 1
+    ops, ranges, per_op = [], [], {}
+    n_dev, dev_us = 0, 0.0
+    for e in prof.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            if e.is_user_annotation():
+                continue
+            us = e.duration_ns() / 1e3
+            n_dev += 1
+            dev_us += us
+            c = e.linked_correlation_id()
+            k, t = per_op.get(c, (0, 0.0))
+            per_op[c] = (k + 1, t + us)
+        elif e.is_user_annotation():
+            if e.name() in scopes:
+                ranges.append((e.name(), e.start_ns(), e.end_ns()))
+        else:
+            ops.append((e.start_ns(), e.correlation_id()))
+    ops.sort()
+    starts = [t for t, _ in ops]
+    out = {name: dict(calls=0, launches=0, dev_us=0.0, host_us=0.0)
+           for name in scopes}
+    for name, t0, t1 in ranges:
+        r = out[name]
+        r["calls"] += 1
+        r["host_us"] += (t1 - t0) / 1e3
+        for _, c in ops[bisect.bisect_left(starts, t0):
+                        bisect.bisect_right(starts, t1)]:
+            k, t = per_op.get(c, (0, 0.0))
+            r["launches"] += k
+            r["dev_us"] += t
+    return wall, n_dev, dev_us, out
+
+
+def phase_tlad_profile(lm, traj, pert, best):
+    """One warm c96L72 pair under torch.profiler: its kernel launches,
+    kernel time and busy share, and the kernel and host time by scope."""
+    wall, n_kernels, kernel_us, by = profile_pair(lm, traj, pert,
+                                                  TLAD_SCOPES)
     print(f"[tlad_profile] c96L72 pair: {n_kernels} kernel launches, "
           f"{kernel_us / 1e3:.3f} ms of kernel time; profiled wall "
           f"{wall:.4f} s (busy {100 * kernel_us / 1e6 / wall:.1f} %), "
           f"unprofiled best pair {best:.4f} s (busy "
           f"{100 * kernel_us / 1e6 / best:.1f} %)", flush=True)
-    for name in TLAD_SCOPES:
-        if name in calls:
-            print(f"[tlad_profile] scope {name}: {calls[name]} calls, kernels "
-                  f"{dev_us[name] / 1e3:.3f} ms, host "
-                  f"{host_us[name] / 1e3:.3f} ms", flush=True)
+    for name, r in by.items():
+        if r["calls"]:
+            print(f"[tlad_profile] scope {name}: {r['calls']} calls, kernels "
+                  f"{r['dev_us'] / 1e3:.3f} ms, host "
+                  f"{r['host_us'] / 1e3:.3f} ms", flush=True)
     if n_kernels == 0:
         raise AssertionError("tlad profile: no kernel events in the trace")
+
+
+def phase_phys_small():
+    """The TL/AD pair and step_nl with the physics on the GPU against the
+    CPU at c8L12 float64 (tests/test_moist.py's configuration and
+    trajectory, the turbulence on), moist modes 1 and 2: every field to
+    1e-10 of its largest value, the dot-product identity below 1e-12 on
+    the card counting cfcn, some column convecting in mode 1, and no SIM1
+    launch on the hydrostatic path."""
+    for mode in (1, 2):
+        res = phys_devices(mode)
+        for sweep in ("nl", "tl", "ad"):
+            worst = 0.0
+            for k, want in res["cpu"][sweep].items():
+                got = res["cuda"][sweep][k]
+                if not np.isfinite(got).all():
+                    raise AssertionError(f"phys small mode {mode} {sweep} "
+                                         f"{k}: non-finite values")
+                rel = float(np.abs(got - want).max()
+                            / max(np.abs(want).max(), 1e-300))
+                worst = max(worst, rel)
+                if not rel <= 1e-10:
+                    raise AssertionError(
+                        f"phys small mode {mode} {sweep} {k}: max|cuda-cpu|"
+                        f"/max|cpu| = {rel} > 1e-10")
+            print(f"[phys_small] mode {mode} {sweep}: max over fields of "
+                  f"max|cuda-cpu|/max|cpu| = {worst:.3e}", flush=True)
+        for dev, r in res.items():
+            print(f"[phys_small] mode {mode} {dev}: dot-product identity "
+                  f"{r['dot']:.3e}; convecting columns {r['doconvec']} of "
+                  f"384; SIM1 launches {r['sim1']}", flush=True)
+        cu = res["cuda"]
+        if not cu["dot"] < 1e-12:
+            raise AssertionError(f"phys small mode {mode}: dot-product "
+                                 f"identity {cu['dot']} >= 1e-12 on the card")
+        if mode == 1 and cu["doconvec"] == 0:
+            raise AssertionError("phys small mode 1: no column convects")
+        if cu["sim1"] != 0:
+            raise AssertionError(f"phys small mode {mode}: {cu['sim1']} SIM1 "
+                                 "launches on the hydrostatic path")
+
+
+def _phys_full_case(lm):
+    """The c96L72 physics trajectory and perturbation, from seed 0 with
+    numpy: the bench state (rest) with tests/test_moist.py's convective
+    sounding at npz 72, frocean = 1 - frland, tests/test_turbulence.py's
+    exchange fields; the perturbation rand_pert(lm, 1)."""
+    as_t = lambda a: torch.as_tensor(np.asarray(a), dtype=lm.dtype,
+                                     device=lm.device)
+    n, npz = lm.cfg.dyn.nx, lm.cfg.dyn.npz
+    rng = np.random.default_rng(0)
+    tr = moist_traj(lm.rest_traj(), n, npz, rng, as_t)
+    sfc = turb_sfc(n, rng)
+    sfc["frocean"] = 1.0 - tr["frland"].cpu().numpy()
+    del sfc["frland"]
+    tr.update({k: as_t(v) for k, v in sfc.items()})
+    return tr, rand_pert(lm, 1)
+
+
+def phase_phys_full(card, pairs=4):
+    """c96L72 hydrostatic float32 with the turbulence and moist mode 1 on
+    the convective sounding: one first pair of step_tl + step_ad(traj, tl)
+    (with the trajectory's forward, record and the two physics
+    linearizations timed on their own), then `pairs` timed pairs.  Checks
+    that every output is finite and that the physics acts (some column
+    convects, the turbulence mixes, the TL differs from the dynamics-only
+    TL).  Returns (lm, traj, pert, best pair seconds, SIM1 launches)."""
+    from fv3jedi_lm_tpu_torch.config import DynConfig, LMConfig
+    from fv3jedi_lm_tpu_torch.lm import LinearModel
+    from fv3jedi_lm_tpu_torch.ops.cuda_sim1 import sim1_solver_cuda
+
+    cfg = LMConfig(dyn=DynConfig(**TLAD_FULL_KW), dt=FULL_DT,
+                   do_phy_trb=True, do_phy_mst=1)
+    lm = LinearModel.create(cfg)
+    traj, pert = _phys_full_case(lm)
+    stepper = lm._staged()
+    parts = {}
+
+    def timed(name, fn):
+        def run(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            parts[name] = time.perf_counter() - t0
+            return out
+        return run
+
+    stepper.forward = timed("forward", stepper.forward)
+    stepper.record = timed("record", stepper.record)
+    lm._moist.linearize = timed("moist", lm._moist.linearize)
+    lm._turb_ltraj = timed("turb", lm._turb_ltraj)
+
+    def pair():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tl = lm.step_tl(traj, pert)
+        ad = lm.step_ad(traj, tl)
+        torch.cuda.synchronize()
+        return tl, ad, time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    sim1_solver_cuda.launches = 0
+    tl, ad, first = pair()
+    times = []
+    for _ in range(pairs):
+        tl, ad, t = pair()
+        times.append(t)
+    launches = sim1_solver_cuda.launches
+    peak = torch.cuda.max_memory_allocated()
+    del stepper.forward, stepper.record, lm._moist.linearize, lm._turb_ltraj
+
+    for what, d in (("tl", tl), ("ad", ad)):
+        for k in lm.prog_3d:
+            if not bool(torch.isfinite(d[k]).all()):
+                raise AssertionError(f"phys full {what} {k}: not finite")
+    cks, tapes, mpack, ltraj = lm._ckpts(traj)
+    share = float(mpack[0]["doconvec"].float().mean())
+    aks = float(ltraj["aks"].abs().max())
+    dyn = lm._staged().tl({k: traj[k] for k in lm.prog_3d}, traj["phis"],
+                          {k: pert[k] for k in lm.prog_3d}, cks, tapes)
+    tl_diff = max(float((tl[k] - dyn[k]).abs().max()) for k in lm.prog_3d)
+    del dyn
+    lhs = dot(tl, tl, lm.prog_3d)
+    rhs = dot(pert, ad, lm.prog_3d)
+    rel = abs(lhs - rhs) / max(abs(lhs), 1e-300)
+    if not np.isfinite(rel):
+        raise AssertionError(f"phys full: dot-product error {rel}")
+    best = min(times)
+    n = cfg.dyn.nx
+    print(f"[phys_full] c96L72 hydrostatic f32 dt=900 n_split=6, turbulence "
+          f"+ moist mode 1: first pair {first:.4f} s (forward "
+          f"{parts['forward']:.4f} s, record {parts['record']:.4f} s, moist "
+          f"set_ltraj {parts['moist']:.4f} s, turbulence set_ltraj "
+          f"{parts['turb']:.4f} s), then pairs "
+          + ", ".join(f"{t:.4f}" for t in times) + " s", flush=True)
+    print(f"[phys_full] best pair {best:.4f} s: "
+          f"{n * n * 6 * cfg.dyn.npz / best:.1f} grid-points/s; peak device "
+          f"memory {peak / 2**30:.3f} GiB; convecting columns "
+          f"{100 * share:.2f} %; max|aks| {aks:.4e}; max|TL - dynamics-only "
+          f"TL| {tl_diff:.4e}; SIM1 launches {launches}; dot-product <M p, "
+          f"M p> vs <p, M^T M p> relative error {rel:.3e} (float32) "
+          f"({card[0]}; {card[1]})", flush=True)
+    if not (share > 0.0 and aks > 0.0 and tl_diff > 0.0):
+        raise AssertionError(
+            f"phys full: the physics does not act (convecting share {share}, "
+            f"max|aks| {aks}, TL difference {tl_diff})")
+    if launches != 0:
+        raise AssertionError(f"phys full: {launches} SIM1 launches on the "
+                             "hydrostatic path")
+    return lm, traj, pert, best, launches
+
+
+#: the scopes of the pair with physics: the dynamics sweeps and the
+#: physics' own
+PHYS_SCOPES = ("step_tl", "step_tl.moist", "step_tl.turb", "step_ad.turb",
+               "step_ad.moist", "step_ad")
+def phase_phys_profile(lm, traj, pert, best):
+    """One warm c96L72 pair with the physics under torch.profiler: its
+    kernel launches, kernel time and busy share, and per scope the
+    launches, kernel time, host time and busy share."""
+    wall, n_kernels, kernel_us, by = profile_pair(lm, traj, pert,
+                                                  PHYS_SCOPES)
+    print(f"[phys_profile] c96L72 pair with physics: {n_kernels} kernel "
+          f"launches, {kernel_us / 1e3:.3f} ms of kernel time; profiled wall "
+          f"{wall:.4f} s (busy {100 * kernel_us / 1e6 / wall:.1f} %), "
+          f"unprofiled best pair {best:.4f} s (busy "
+          f"{100 * kernel_us / 1e6 / best:.1f} %)", flush=True)
+    for name, r in by.items():
+        if not (r["calls"] and r["launches"]):
+            raise AssertionError(f"phys profile: scope {name} has no "
+                                 "kernel launches in the trace")
+        print(f"[phys_profile] scope {name}: {r['launches']} launches, "
+              f"kernels {r['dev_us'] / 1e3:.3f} ms, host "
+              f"{r['host_us'] / 1e3:.3f} ms, busy "
+              f"{100 * r['dev_us'] / max(r['host_us'], 1e-9):.1f} %",
+              flush=True)
+    if n_kernels == 0:
+        raise AssertionError("phys profile: no kernel events in the trace")
 
 
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
+
+    def elapsed(phase):
+        print(f"[time] {phase} done at {time.perf_counter() - t_start:.1f} s",
+              flush=True)
+
     card = _card()
     print(f"[device] {card[0]}", flush=True)
     print(card[1], flush=True)
     phase_build()
     record = phase_kernel(card)
+    elapsed("kernel")
     phase_small()
     lm, last, record["launches"] = phase_full(card)
     phase_profile(lm, last)
     del lm, last
+    elapsed("NH step_nl")
     phase_tlad_small()
+    elapsed("tlad_small")
     lm, traj, pert, best, record["launches_tlad_c96L72"] = phase_tlad_full(
         card)
     phase_tlad_profile(lm, traj, pert, best)
+    del lm, traj, pert
+    torch.cuda.empty_cache()
+    elapsed("tlad_full + profile")
+    phase_phys_small()
+    elapsed("phys_small")
+    lm, traj, pert, best, record["launches_phys_c96L72"] = phase_phys_full(
+        card)
+    phase_phys_profile(lm, traj, pert, best)
+    elapsed("phys_full + profile")
     print(card[1], flush=True)
     print(json.dumps({"kernels": [record]}))
     print(json.dumps({"ok": True, "device": {

@@ -66,6 +66,45 @@ def active() -> bool:
     return _state is not None
 
 
+def mode():
+    """None outside any context, else "rec" (recording) or "rep"
+    (replaying)."""
+    return None if _state is None else _state[0]
+
+
+def record_entry(entry):
+    """Append one entry, a list of tensors, to the tape being recorded (a
+    loop that records its own decisions, laid out as `fscan` lays out its
+    entry)."""
+    _state[1].append([_plain(t) for t in entry])
+
+
+def take_entry():
+    """The next entry of the tape being replayed."""
+    return _next_entry()
+
+
+def rewinder():
+    """A context-manager factory that replays, each time it is entered,
+    from the tape position current now (a block recomputed later, e.g. by
+    activation checkpointing, sees the decisions it saw the first time);
+    outside any context it is a plain block.  Not for recording."""
+    if _state is not None and _state[0] == "rec":
+        raise RuntimeError("a recording cannot be rewound")
+    st = None if _state is None else (_state[1], _state[2][0])
+
+    @contextmanager
+    def again():
+        global _state
+        prev = _state
+        _state = None if st is None else ["rep", st[0], [st[1]]]
+        try:
+            yield
+        finally:
+            _state = prev
+    return again
+
+
 def _next_entry():
     tape, cur = _state[1], _state[2]
     if cur[0] >= len(tape):
@@ -77,12 +116,21 @@ def _next_entry():
     return entry
 
 
+def _plain(t):
+    """`t` outside any `torch.func` transform's wrapper: a decision made
+    inside a transform (the jvp probes of the physics) is stored as the
+    plain tensor it wraps."""
+    while torch._C._functorch.is_functorch_wrapped_tensor(t):
+        t = torch._C._functorch.get_unwrapped(t)
+    return t
+
+
 def fbool(pred):
     """Freeze a boolean decision tensor."""
     if _state is None:
         return pred
     if _state[0] == "rec":
-        _state[1].append(pred)
+        _state[1].append(_plain(pred))
         return pred
     return _next_entry()
 
@@ -94,12 +142,12 @@ def fint(idx, maxval=None):
     if _state is None:
         return idx
     if _state[0] == "rec":
-        ent = idx
+        ent = _plain(idx)
         if maxval is not None and not idx.dtype.is_floating_point:
             if maxval <= 255:
-                ent = idx.to(torch.uint8)
+                ent = ent.to(torch.uint8)
             elif maxval < 2 ** 31:
-                ent = idx.to(torch.int32)
+                ent = ent.to(torch.int32)
         _state[1].append(ent)
         return idx
     entry = _next_entry()
@@ -133,6 +181,8 @@ def fsign_mul(x, y):
 
 
 def _index(xs, i):
+    if isinstance(xs, dict):
+        return {k: _index(x, i) for k, x in xs.items()}
     if isinstance(xs, (tuple, list)):
         return type(xs)(_index(x, i) for x in xs)
     return xs[i]
@@ -140,28 +190,36 @@ def _index(xs, i):
 
 def _stack(ys):
     first = ys[0]
+    if first is None:
+        return None
+    if isinstance(first, dict):
+        return {k: _stack([y[k] for y in ys]) for k in first}
     if isinstance(first, (tuple, list)):
         return type(first)(_stack([y[j] for y in ys])
                            for j in range(len(first)))
     return torch.stack(ys, dim=0)
 
 
+def _first_leaf(xs):
+    while isinstance(xs, (dict, tuple, list)):
+        xs = next(iter(xs.values())) if isinstance(xs, dict) else xs[0]
+    return xs
+
+
 def fscan(body, carry, xs, length=None, reverse=False):
     """`lax.scan` as a Python loop over the leading axis of `xs`; the body
     may use the freeze helpers.
 
-    `xs` is a tensor or a (nested) tuple of tensors; `body(carry, x)`
-    returns `(carry, y)`.  Returns the final carry and the stacked `y`s in
-    the order of `xs` (also when `reverse`).  Recording, the body's
-    per-iteration entries are stacked along a leading axis (in the order of
-    `xs`) and appended to the tape as ONE entry; replaying, that entry is
-    consumed and its slices fed back to the iterations."""
+    `xs` is a tensor or a (nested) dict, tuple or list of tensors;
+    `body(carry, x)` returns `(carry, y)` (`y` may be None).  Returns the
+    final carry and the stacked `y`s in the order of `xs` (also when
+    `reverse`).  Recording, the body's per-iteration entries are stacked
+    along a leading axis (in the order of `xs`) and appended to the tape as
+    ONE entry; replaying, that entry is consumed and its slices fed back to
+    the iterations."""
     global _state
     if length is None:
-        leaf = xs
-        while isinstance(leaf, (tuple, list)):
-            leaf = leaf[0]
-        length = leaf.shape[0]
+        length = _first_leaf(xs).shape[0]
     order = range(length - 1, -1, -1) if reverse else range(length)
     st = _state
     ys = [None] * length

@@ -7,10 +7,17 @@ perturbations are plain dicts of compute-domain tensors — u
 (npz,6,ny,nx), plus 2-D phis (6,ny,nx) on the trajectory — on the model's
 device.
 
-The dynamics-only steps are ported, hydrostatic and nonhydrostatic:
-`step_nl`/`run_nl`, and the staged tangent-linear `step_tl` and adjoint
-`step_ad` (core/staged.py), which linearize at the trajectory checkpoints
-and branch tapes that `_ckpts` stores per trajectory.  The physics raises.
+The steps are ported, hydrostatic and nonhydrostatic: `step_nl`/`run_nl`,
+and the staged tangent-linear `step_tl` and adjoint `step_ad`
+(core/staged.py), which linearize at the trajectory checkpoints and branch
+tapes that `_ckpts` stores per trajectory.  With `do_phy_mst` the moist
+physics (physics/moist.py) and with `do_phy_trb` the boundary-layer
+turbulence (physics/turbulence.py) follow the dynamics, composed as the
+JAX package composes them: dynamics -> moist -> turbulence in `step_nl`
+and `step_tl`, turbulence^T -> moist^T -> dynamics^T in `step_ad`; the
+moist linearization is made at the post-dynamics state and the turbulence
+one at the post-moist state, both cached with the trajectory's
+checkpoints.
 `traj_from_numpy`/`traj_to_numpy` carry states to and from dicts of numpy
 arrays (the form the JAX package's states take through np.asarray).
 """
@@ -34,8 +41,15 @@ from .timing import scope
 
 TRACERS = ("qv", "ql", "qi", "o3")  # ncnst=4 (fv3jedi_lm_dynamics_mod.F90:159-167)
 #: 2-D surface trajectory fields consumed by the physics, passed through
+#: (fv3jedi_lm_utils_mod.F90:43-54)
 SURFACE_2D = ("frland", "frocean", "varflt", "zpbl", "cm", "ct", "cq",
               "ustar", "bstar", "ts", "kcbl", "khl", "khu")
+#: 3-D cloud trajectory fields consumed by the moist physics
+#: (fv3jedi_lm_moist_mod.F90:721-726)
+MOIST_3D = ("qls", "qcn", "cfcn")
+#: fields the turbulence diffusion acts on (fv3jedi_lm_turbulence_mod.F90:
+#: 192-198)
+PHYS_FIELDS = ("u", "v", "t", "qv", "qi", "ql", "o3")
 _DTYPES = {"float64": torch.float64, "float32": torch.float32}
 
 
@@ -52,12 +66,11 @@ class LinearModel:
                 "LinearModel runs on the GPU by default and this host has no "
                 "CUDA device; pass device=\"cpu\" to run on the CPU")
         cfg = cfg.replace(dyn=cfg.dyn.resolve())
-        if cfg.do_phy_trb or cfg.do_phy_mst:
-            raise NotImplementedError(
-                "physics (do_phy_trb/do_phy_mst): ROADMAP Queue 1, physics")
         self.cfg = cfg
         dyn = cfg.dyn
-        self.tracers = TRACERS
+        # ncnst = 4, or 5 with moist physics: cfcn rides as the 5th
+        # advected tracer (fv3jedi_lm_dynamics_mod.F90:159-167)
+        self.tracers = TRACERS + ("cfcn",) if cfg.do_phy_mst else TRACERS
         self.prog_3d = ("u", "v", "t", "delp") + self.tracers
         if not dyn.hydrostatic:
             self.prog_3d = self.prog_3d + ("w", "delz")
@@ -83,6 +96,15 @@ class LinearModel:
         # saveltraj, else the most recent trajectory's
         self._traj_cache = OrderedDict()
         self._traj_cache_max = (cfg.nt + 1) if cfg.saveltraj else 1
+        self._turb = None
+        self._moist = None
+        if cfg.do_phy_trb:
+            from .physics.turbulence import Turbulence
+            self._turb = Turbulence(dyn, self.ak, self.bk)
+        if cfg.do_phy_mst:
+            from .physics.moist import Moist
+            self._moist = Moist(dyn, self.ak, self.bk, cfg.dt,
+                                cfg.do_phy_mst)
 
     @classmethod
     def create(cls, cfg: LMConfig, device="cuda", ak=None, bk=None,
@@ -201,15 +223,36 @@ class LinearModel:
         return self._unpad(st, q)
 
     def step_nl(self, traj: dict) -> dict:
-        """Nonlinear trajectory step (fv3jedi_lm_mod.F90:148-157)."""
+        """Nonlinear trajectory step (fv3jedi_lm_mod.F90:148-157): the
+        dynamics, then the moist physics, then the turbulence."""
         with torch.no_grad():
             out = self._step_fn({k: traj[k] for k in self.prog_3d},
                                 traj["phis"])
+            out = self._physics_nl(out, traj, True)[0]
         out["phis"] = traj["phis"]
-        for f in SURFACE_2D:
+        for f in SURFACE_2D + MOIST_3D:
+            # static surface/cloud trajectory fields pass through; a field
+            # the step produced (cfcn as the 5th tracer) keeps its value
             if f in traj and f not in out:
                 out[f] = traj[f]
         return out
+
+    def _physics_nl(self, out, traj, turb_step):
+        """The physics after the dynamics on the post-dynamics state `out`:
+        (the state after it, the moist (ltraj, tape) pack, the turbulence
+        ltraj); the moist pack is made at the post-dynamics state, the
+        turbulence one at the post-moist state, which the turbulence then
+        steps if `turb_step`."""
+        mpack = ltraj = None
+        if self._moist is not None:
+            with scope("ckpts.moist_ltraj"):
+                mpack, out = self._moist.linearize(out, self._moist_sfc(traj))
+        if self._turb is not None:
+            with scope("ckpts.turb_ltraj"):
+                ltraj = self._turb_ltraj(out, traj)
+            if turb_step:
+                out = self._phys_apply(ltraj, out)
+        return out, mpack, ltraj
 
     def _staged(self):
         if self._stepper is None:
@@ -219,15 +262,19 @@ class LinearModel:
 
     def _traj_token(self, traj):
         """Cache key of a trajectory: the identities of its prognostic
-        tensors and phis, with the tensors themselves to pin them (a key
-        cannot be reused by another trajectory while its entry lives)."""
-        fields = self.prog_3d + ("phis",)
+        tensors, phis and every surface and cloud field the physics
+        linearizes at (kcbl, ts, qls, ...), with the tensors themselves to
+        pin them (a key cannot be reused by another trajectory while its
+        entry lives)."""
+        fields = self.prog_3d + ("phis",) + tuple(
+            f for f in SURFACE_2D + MOIST_3D if f in traj)
         return (tuple(id(traj[k]) for k in fields),
                 tuple(traj[k] for k in fields))
 
     def _ckpts(self, traj):
-        """The trajectory's stage checkpoints and branch tapes, cached by
-        the identity of its tensors."""
+        """The trajectory's stage checkpoints, branch tapes and physics
+        linearizations (cks, tapes, mpack, ltraj), cached by the identity
+        of its tensors; mpack and ltraj are None without the physics."""
         key, pins = self._traj_token(traj)
         hit = self._traj_cache.get(key)
         if hit is not None:
@@ -236,31 +283,100 @@ class LinearModel:
         stepper = self._staged()
         prog = {k: traj[k] for k in self.prog_3d}
         with scope("ckpts.forward"):
-            _, cks = stepper.forward(prog, traj["phis"])
+            out, cks = stepper.forward(prog, traj["phis"])
         with scope("ckpts.record"):
             tapes = stepper.record(cks)
-        self._traj_cache[key] = (pins, (cks, tapes))
+        with torch.no_grad():
+            _, mpack, ltraj = self._physics_nl(out, traj, False)
+        del out
+        val = (cks, tapes, mpack, ltraj)
+        self._traj_cache[key] = (pins, val)
         while len(self._traj_cache) > self._traj_cache_max:
             self._traj_cache.popitem(last=False)
-        return cks, tapes
+        return val
+
+    # -- physics ---------------------------------------------------------------
+
+    def _sfc(self, traj, names, shape):
+        return {f: traj[f] if f in traj else self._zeros(*shape)
+                for f in names}
+
+    def _moist_sfc(self, traj):
+        """Surface and cloud trajectory fields the moist driver reads
+        (fv3jedi_lm_moist_mod.F90 set_ltraj:721-737)."""
+        n = self.cfg.dyn.nx
+        sfc = self._sfc(traj, ("ts", "frland", "kcbl", "khu", "khl"),
+                        (6, n, n))
+        sfc.update({f: traj[f] for f in MOIST_3D if f in traj})
+        return sfc
+
+    def _turb_ltraj(self, prog: dict, traj: dict):
+        """Frozen-K turbulence coefficients linearized at `prog`, the state
+        the physics step reaches the turbulence with."""
+        n = self.cfg.dyn.nx
+        sfc = self._sfc(traj, SURFACE_2D, (6, n, n))
+        # 3-D cloud condensate (bldriver QLTOT)
+        sfc.update(self._sfc(traj, ("qls", "qcn"), (self.cfg.dyn.npz, 6, n, n)))
+        return self._turb.set_ltraj(dict(prog, **sfc), self.cfg.dt,
+                                    do_phy_mst=self.cfg.do_phy_mst)
+
+    def _phys_apply(self, ltraj, prog):
+        """The (linear) frozen-K turbulence diffusion on a prog dict, then
+        the shared D-edges made single-owner again through `_pad` (the
+        reference refreshes them at the next dynamics entry)."""
+        n = self.cfg.dyn.nx
+        fs = {k: prog[k] for k in PHYS_FIELDS[2:]}
+        fs["u"] = prog["u"][..., :n, :]
+        fs["v"] = prog["v"][..., :, :n]
+        out = self._turb.apply(ltraj, fs)
+        u = torch.cat([out["u"], prog["u"][..., n:, :]], -2)
+        v = torch.cat([out["v"], prog["v"][..., :, n:]], -1)
+        st, _ = self._pad(dict(prog, u=u, v=v))
+        cs = slice(NG, NG + n)
+        bs = slice(NG, NG + n + 1)
+        return dict(prog, u=st["u"][:, :, bs, cs], v=st["v"][:, :, cs, bs],
+                    **{k: out[k] for k in PHYS_FIELDS[2:]})
+
+    def _turb_apply_transpose(self, ltraj, pb):
+        """Exact transpose of `_phys_apply` (the reference's vtrisolvepert
+        phase-2 sweeps, fv3jedi_lm_turbulence_mod.F90:286-350)."""
+        from .core.staged import vjp
+        return vjp(lambda f: self._phys_apply(ltraj, f), (pb,), pb)[0]
+
+    # -- the tangent linear and the adjoint ------------------------------------
 
     def step_tl(self, traj: dict, pert: dict) -> dict:
         """Tangent-linear step: pert' = M(traj) pert (fv3jedi_lm_mod.F90:
         161), the per-stage jvp at the stored trajectory checkpoints with
-        the branch tapes replayed (core/staged.py)."""
+        the branch tapes replayed (core/staged.py), then the moist and the
+        turbulence tangent linears."""
         prog = {k: traj[k] for k in self.prog_3d}
         p = {k: pert[k].to(self.dtype) for k in self.prog_3d}
-        cks, tapes = self._ckpts(traj)
+        cks, tapes, mpack, ltraj = self._ckpts(traj)
         with scope("step_tl"):
-            return self._staged().tl(prog, traj["phis"], p, cks, tapes)
+            p = self._staged().tl(prog, traj["phis"], p, cks, tapes)
+        if self._moist is not None:
+            with scope("step_tl.moist"):
+                p = self._moist.apply_tl(*mpack, p)
+        if self._turb is not None:
+            with scope("step_tl.turb"):
+                p = self._phys_apply(ltraj, p)
+        return p
 
     def step_ad(self, traj: dict, pert_ad: dict) -> dict:
         """Adjoint step: pert_bar = M(traj)^T pert_ad (fv3jedi_lm_mod.F90:
-        176), the per-stage vjp at the same checkpoints and tapes as
-        step_tl, so <M dx, dy> == <dx, M^T dy> to rounding."""
+        176): the turbulence and the moist adjoints, then the per-stage vjp
+        at the same checkpoints and tapes as step_tl, so <M dx, dy> ==
+        <dx, M^T dy> to rounding."""
         prog = {k: traj[k] for k in self.prog_3d}
         pb = {k: pert_ad[k].to(self.dtype) for k in self.prog_3d}
-        cks, tapes = self._ckpts(traj)
+        cks, tapes, mpack, ltraj = self._ckpts(traj)
+        if self._turb is not None:
+            with scope("step_ad.turb"):
+                pb = self._turb_apply_transpose(ltraj, pb)
+        if self._moist is not None:
+            with scope("step_ad.moist"):
+                pb = self._moist.apply_ad(*mpack, pb)
         with scope("step_ad"):
             return self._staged().ad(prog, traj["phis"], pb, cks, tapes)
 

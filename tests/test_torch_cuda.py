@@ -20,7 +20,12 @@ The TL/AD check is chip_smoke.py's phase_tlad_small at c12L10 float64,
 hydrostatic and nonhydrostatic: step_tl/step_ad on the GPU equal the CPU's
 to 1e-10 relative norm per field, the dot-product identity holds below
 1e-12 on the card, and SIM1's kernel runs 2 x n_split times in the
-nonhydrostatic `forward` and never in the differentiated stages.
+nonhydrostatic `forward` and never in the differentiated stages.  The
+physics check is chip_smoke.py's phase_phys_small at c8L12 float64 with
+the turbulence and moist modes 1 and 2: step_nl/step_tl/step_ad on the
+GPU equal the CPU's to 1e-10 of each field's largest value, the identity
+holds below 1e-12 on the card counting cfcn, mode 1 convects somewhere,
+and SIM1 never runs.
 """
 
 import numpy as np
@@ -93,3 +98,21 @@ def test_tlad_gpu_matches_cpu(name):
     want_fwd = 0 if kw.get("hydrostatic", True) else 2 * kw["n_split"]
     assert res["cuda"]["fwd_launches"] == want_fwd
     assert res["cuda"]["mixed_launches"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [1, 2])
+def test_physics_gpu_matches_cpu(mode):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    res = chip_smoke.phys_devices(mode)
+    for sweep in ("nl", "tl", "ad"):
+        for k, want in res["cpu"][sweep].items():
+            got = res["cuda"][sweep][k]
+            assert np.isfinite(got).all(), (sweep, k)
+            d = np.abs(got - want).max()
+            assert d <= 1e-10 * np.abs(want).max(), (sweep, k, d)
+    assert res["cuda"]["dot"] < 1e-12, res["cuda"]["dot"]
+    assert res["cuda"]["sim1"] == 0
+    if mode == 1:
+        assert res["cuda"]["doconvec"] > 0

@@ -393,7 +393,7 @@ def tlad(jax_model, port):
     tr = traj_from_numpy(port, {k: np.asarray(v) for k, v in traj.items()})
     ptl = port.step_tl(tr, traj_from_numpy(port, dx))
     pad = port.step_ad(tr, traj_from_numpy(port, dy))
-    _, ptapes = port._ckpts(tr)
+    _, ptapes, _, _ = port._ckpts(tr)
     port_tapes = dict(sub0=list(ptapes["sub"][0][0]), post=ptapes["post"][0])
     return dict(tl=({k: np.asarray(v) for k, v in tl.items()},
                     traj_to_numpy(ptl)),
@@ -538,7 +538,7 @@ def _forced_decisions(port, tr, which, jax_tapes):
     """The port's own decisions of the `which` stages, each computed with
     the JAX package's decisions upstream, and their tie masks (_TieMode;
     None for integer entries)."""
-    cks, _ = port._ckpts(tr)
+    cks = port._ckpts(tr)[0]
     stepper = port._staged()
     st2, dp1 = stepper._pre_fwd(cks["pre_in"][0][0])
     mode = _TieMode()

@@ -4,7 +4,9 @@ originals compute bit for bit, and its entry point runs on the card unless
 the caller asks for the CPU.
 
 No JAX function is compiled here: the copies are NumPy, so each pair is
-compared directly (grids at c12 and c24, ak/bk, constants, configs).
+compared directly (grids at c12 and c24, ak/bk, constants, configs, and
+the physics' tables: the saturation table ESTBLX and its polynomials,
+RASPARAMS, CLOUDPARAMS, the turbulence parameters and the ACRITN tables).
 """
 
 import dataclasses
@@ -21,10 +23,18 @@ from fv3jedi_lm_tpu import config as jax_config
 from fv3jedi_lm_tpu import constants as jax_constants
 from fv3jedi_lm_tpu.grid import eta as jax_eta
 from fv3jedi_lm_tpu.grid import metrics as jax_metrics
+from fv3jedi_lm_tpu.physics import bldriver as jax_bldriver
+from fv3jedi_lm_tpu.physics import cloud as jax_cloud
+from fv3jedi_lm_tpu.physics import convection as jax_convection
+from fv3jedi_lm_tpu.physics import qsat as jax_qsat
 from fv3jedi_lm_tpu_torch import config as port_config
 from fv3jedi_lm_tpu_torch import constants as port_constants
 from fv3jedi_lm_tpu_torch.grid import eta as port_eta
 from fv3jedi_lm_tpu_torch.grid import metrics as port_metrics
+from fv3jedi_lm_tpu_torch.physics import bldriver as port_bldriver
+from fv3jedi_lm_tpu_torch.physics import cloud as port_cloud
+from fv3jedi_lm_tpu_torch.physics import convection as port_convection
+from fv3jedi_lm_tpu_torch.physics import qsat as port_qsat
 from test_torch_d_sw import D_SW_KW
 from test_torch_hydro import D_SW_KW as HYDRO_D_SW_KW
 from test_torch_step_nl import NH_KW as STEP_NL_KW
@@ -154,9 +164,43 @@ def test_topology_connectivity_matches(grids, npx):
         _bits_equal(getattr(port.topo, attr), getattr(ref.topo, attr), attr)
 
 
+@pytest.mark.parametrize("name", ["_esat_liquid", "_esat_ice"])
+def test_qsat_polynomials_match(name):
+    t = np.linspace(140.0, 340.0, 20001)
+    _bits_equal(getattr(port_qsat, name)(t), getattr(jax_qsat, name)(t))
+
+
+def test_estblx_matches():
+    """The saturation table and its constants, bit for bit."""
+    _bits_equal(port_qsat.ESTBLX, jax_qsat.ESTBLX)
+    _bits_equal(port_qsat.build_estblx(), jax_qsat.build_estblx())
+    for k in ("DEGSUBS", "TMINTBL", "TMAXTBL", "TABLESIZE", "ZEROC", "ESFAC",
+              "MAX_MIXING_RATIO"):
+        _bits_equal(getattr(port_qsat, k), getattr(jax_qsat, k), k)
+
+
+@pytest.mark.parametrize("npx", [9, 49, 97, 193, 401])
+def test_physics_parameter_tables_match(npx):
+    """default_rasparams, cloud_params and default_turb_params (on the
+    default L72 and the moist tests' L12 coordinates), and the ACRITN
+    tables, at each resolution class of their imsize switches."""
+    _bits_equal(port_convection.default_rasparams(npx),
+                jax_convection.default_rasparams(npx))
+    _bits_equal(port_cloud.cloud_params(npx - 1),
+                jax_cloud.cloud_params(npx - 1))
+    for ak, bk in (port_eta.default_ak_bk(72),
+                   (chip_smoke.PHYS_AK, chip_smoke.PHYS_BK)):
+        pref = np.asarray(ak) + np.asarray(bk) * 1.0e5
+        _bits_equal(port_bldriver.default_turb_params(pref),
+                    jax_bldriver.default_turb_params(pref))
+    _bits_equal(port_convection.ACRIT_PH, jax_convection.ACRIT_PH)
+    _bits_equal(port_convection.ACRIT_A, jax_convection.ACRIT_A)
+
+
 #: the configurations the port's tests and chip_smoke.py build models from
 CONFIGS = {"step_nl": STEP_NL_KW, "d_sw": D_SW_KW,
            "hydro_d_sw": HYDRO_D_SW_KW,
+           "chip_smoke_phys_small": chip_smoke.PHYS_SMALL_KW,
            "chip_smoke_small": chip_smoke.SMALL_KW,
            "chip_smoke_c96L72": chip_smoke.FULL_KW,
            "chip_smoke_tlad_c96L72": chip_smoke.TLAD_FULL_KW,

@@ -115,10 +115,12 @@ def test_rest_state_stays_at_rest():
 
 
 def test_unported_options_raise():
-    """What the port does not run yet raises, naming its ROADMAP item:
-    the physics, and a dynamics option (beta) outside the slices."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LinearModel.create(CFG.replace(do_phy_trb=True), device="cpu")
+    """What the port does not run yet raises, naming its ROADMAP item: a
+    dynamics option (beta) outside the slices.  The physics is ported and
+    builds."""
+    phys = LinearModel.create(CFG.replace(do_phy_trb=True, do_phy_mst=1),
+                              device="cpu")
+    assert phys.tracers[-1] == "cfcn"
     beta = LinearModel.create(CFG.replace(dyn=CFG.dyn.replace(beta=0.5)),
                               device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
