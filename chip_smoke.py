@@ -20,7 +20,13 @@ against the CPU at c8L12 float64, moist modes 1 and 2 with the
 turbulence, with the dot-product identity; timed at c96L72 float32
 hydrostatic with moist mode 1 and the turbulence on a convective
 sounding; and one warm pair under torch.profiler with the physics' own
-scopes.  Each phase raises on failure.  The last two lines of standard
+scopes.  Then the rest of the dynamics options: each one on its own on
+the GPU against the CPU at c12L10 float64 (step_nl, step_tl, step_ad,
+the identity; the nonhydrostatic beta case launches SIM1), and the
+4D-Var window (run_nl, run_tl, run_ad) at c96L72 float32 with the
+options FV3 configurations commonly turn on, with and without the
+saveltraj cache, its bytes per cached step and the host timers' table.
+Each phase raises on failure.  The last two lines of standard
 output are a JSON line describing the kernels and a JSON status line.
 Without a CUDA device the script exits non-zero and prints no result.  It
 imports neither JAX nor the JAX package.
@@ -28,6 +34,7 @@ imports neither JAX nor the JAX package.
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -62,6 +69,43 @@ TLAD_SMALL = {
 #: linearization (pert hord 2, kord 17, pert sponge, vorticity damping)
 TLAD_FULL_KW = dict(npx=97, npy=97, npz=72, n_split=6, k_split=1,
                     d2_bg_k1=0.2, d2_bg_k2=0.1, n_sponge=6, dtype="float32")
+#: the options of phase_options_small, each on its own over the c12L10
+#: hydrostatic configuration of TLAD_SMALL (the JAX package's tests of
+#: each: tests/test_energetics.py, test_beta.py, test_rayleigh.py,
+#: test_mix_dp.py, test_omega.py)
+OPTIONS_SMALL = {
+    "consv_te": dict(consv_te=1.0),
+    "beta": dict(beta=0.4),
+    "beta_nh": dict(beta=0.4, hydrostatic=False),
+    "d_con": dict(d_con=1.0, do_vort_damp=True, vtdm4=0.05),
+    "d_ext": dict(d_ext=0.02),
+    "rayleigh_super": dict(tau=5.0, rf_cutoff=50.0e2),
+    "rayleigh_friction": dict(tau=5.0, rf_cutoff=50.0e2, grid_type=4),
+    "rayleigh_fast": dict(tau=5.0, rf_cutoff=50.0e2, rayleigh_fast=True),
+    "fill_dp": dict(fill_dp=True),
+    "hord10_kord9": dict(hord_mt=10, hord_vt=10, hord_tm=10, hord_dp=10,
+                         kord_mt=9, kord_tm=9, kord_tr=9),
+    "trdm2": dict(nord_tr=1, trdm2=0.1),
+    "omega": dict(compute_omega=True),
+}
+#: the options FV3 configurations commonly turn on (the energy-conserving
+#: remap, dissipative heating, Rayleigh damping, the monotone hord 10 and
+#: kord 9, thin-layer filling), for the c96L72 window; with the vorticity
+#: damping, without which d_con heats only the top two levels, where the
+#: sponge sets it to 0 (core/dyn_core._n_con)
+PRODUCTION_OPTIONS = dict(hord_mt=10, hord_vt=10, hord_tm=10, hord_dp=10,
+                          kord_mt=9, kord_tm=9, kord_tr=9, d_con=1.0,
+                          consv_te=1.0, tau=5.0, fill_dp=True,
+                          do_vort_damp=True, vtdm4=0.05)
+WINDOW_NT = 3
+#: the window's configuration: TLAD_FULL_KW with the perturbation sponge
+#: at production magnitudes (tests/test_sponge_depth.py).  TLAD_FULL_KW
+#: keeps the DynConfig defaults d2_bg_k1/k2/ks_pert = 4, 2, 2, with which
+#: an explicit del-2 is unstable: its TL grows by about 1e8 a step, so a
+#: window of 3 steps overflows float32 in the adjoint
+#: (scripts/torch_tl_growth.py)
+WINDOW_KW = dict(TLAD_FULL_KW, d2_bg_k1_pert=0.2, d2_bg_k2_pert=0.12,
+                 d2_bg_ks_pert=0.06)
 #: the perturbation scales of tests/test_lm.py, tests/test_nh_e2e.py and
 #: tests/test_moist.py `_rand_pert`
 PERT_SCALE = dict(u=1.0, v=1.0, t=1.0, delp=10.0, qv=1e-4, ql=1e-6,
@@ -968,6 +1012,217 @@ def phase_phys_profile(lm, traj, pert, best):
         raise AssertionError("phys profile: no kernel events in the trace")
 
 
+def _rel_max(got, want):
+    """max|got - want| / max|want|, and whether got is finite."""
+    return (float(np.abs(got - want).max())
+            / max(float(np.abs(want).max()), 1e-300),
+            bool(np.isfinite(got).all()))
+
+
+def phase_options_small():
+    """Each dynamics option of OPTIONS_SMALL on its own, at c12L10 float64,
+    on the GPU against the CPU from one trajectory spun up on the CPU:
+    step_nl (with omega, the omga diagnostic), step_tl and step_ad each to
+    1e-10 of every field's largest value, the dot-product identity below
+    1e-12 on the card, and SIM1 by mode (the nonhydrostatic beta case
+    launches it 2 times per substep in the trajectory forward, never in the
+    differentiated stages; the hydrostatic cases never)."""
+    from fv3jedi_lm_tpu_torch.config import DynConfig, LMConfig
+    from fv3jedi_lm_tpu_torch.lm import (LinearModel, traj_from_numpy,
+                                         traj_to_numpy)
+    from fv3jedi_lm_tpu_torch.ops.cuda_sim1 import sim1_solver_cuda
+
+    for name, over in OPTIONS_SMALL.items():
+        t0 = time.perf_counter()
+        cfg = LMConfig(dyn=DynConfig(**TLAD_SMALL["hydrostatic"], **over),
+                       dt=450.0)
+        hyd = cfg.dyn.hydrostatic
+        tlad = name != "omega"
+        cpu = LinearModel.create(cfg, device="cpu")
+        tr = spun_up(cpu, 2, moist=hyd)
+        if name == "fill_dp":
+            # tests/test_mix_dp.py: a thinned layer, so that mix_dp mixes
+            delp = tr["delp"].clone()
+            delp[4, :, 3:6, 3:6] *= 0.002
+            tr = cpu.step_nl(dict(tr, delp=delp))
+        traj = traj_to_numpy(tr)
+        res = {}
+        for dev in ("cuda", "cpu"):
+            lm = LinearModel.create(cfg, device=dev)
+            tr = traj_from_numpy(lm, traj)
+            sim1_solver_cuda.launches = 0
+            nl = traj_to_numpy(lm.step_nl(tr))
+            r = dict(nl=nl, nl_launches=sim1_solver_cuda.launches)
+            if tlad:
+                dx, dy = rand_pert(lm, 1), rand_pert(lm, 2)
+                sim1_solver_cuda.launches = 0
+                mdx = lm.step_tl(tr, dx)
+                mtdy = lm.step_ad(tr, dy)
+                r.update(tl=traj_to_numpy(mdx), ad=traj_to_numpy(mtdy),
+                         launches=sim1_solver_cuda.launches)
+                lhs = dot(mdx, dy, lm.prog_3d)
+                rhs = dot(dx, mtdy, lm.prog_3d)
+                r["dot"] = abs(lhs - rhs) / max(abs(lhs), 1e-300)
+            res[dev] = r
+        keys = cpu.prog_3d + (("omga",) if name == "omega" else ())
+        worst = {}
+        for what in ("nl", "tl", "ad") if tlad else ("nl",):
+            for k in keys:
+                rel, fin = _rel_max(res["cuda"][what][k],
+                                    res["cpu"][what][k])
+                if not (fin and rel <= 1e-10):
+                    raise AssertionError(
+                        f"options small {name} {what} {k}: finite {fin}, "
+                        f"max|cuda-cpu|/max|cpu| = {rel}")
+                worst[what] = max(worst.get(what, 0.0), rel)
+        if name == "omega" and not np.abs(res["cuda"]["nl"]["omga"]).max(
+                ) > 0.0:
+            raise AssertionError("options small omega: omga is zero")
+        want_nl = 0 if hyd else 2 * cfg.dyn.n_split
+        if res["cuda"]["nl_launches"] != want_nl:
+            raise AssertionError(
+                f"options small {name}: {res['cuda']['nl_launches']} SIM1 "
+                f"launches in step_nl, want {want_nl}")
+        msg = (f"[options_small] {name}: max over fields of "
+               f"max|cuda-cpu|/max|cpu| "
+               + ", ".join(f"{w} {v:.3e}" for w, v in worst.items())
+               + f"; SIM1 launches step_nl {res['cuda']['nl_launches']}")
+        if tlad:
+            if not res["cuda"]["dot"] < 1e-12:
+                raise AssertionError(f"options small {name}: dot-product "
+                                     f"identity {res['cuda']['dot']} on the "
+                                     "card")
+            # the TL's trajectory forward launches SIM1 (NH), the
+            # differentiated stages never
+            if res["cuda"]["launches"] != want_nl:
+                raise AssertionError(
+                    f"options small {name}: {res['cuda']['launches']} SIM1 "
+                    f"launches in step_tl + step_ad, want {want_nl} (the "
+                    "trajectory forward only)")
+            msg += (f", step_tl + step_ad {res['cuda']['launches']}; "
+                    f"identity on the card {res['cuda']['dot']:.3e}, on "
+                    f"the CPU {res['cpu']['dot']:.3e}")
+        print(msg + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
+def phase_window_full(card, nt=WINDOW_NT):
+    """The 4D-Var window at c96L72 hydrostatic float32 (WINDOW_KW, dt 900)
+    with the production options, LMConfig(nt, saveltraj=True), on
+    _bench_case's trajectory and perturbation: run_nl (with omega), then
+    run_tl(p) and run_ad(run_tl(p)) twice, each window timed to a
+    synchronize, the first apart (it makes the linearizations); the bytes
+    of each cached step's checkpoints and tapes (debug.cache_bytes); the
+    float32 window dot-product error; the host timers' table; then the
+    window once with saveltraj=False (each step linearized again).  SIM1's
+    launches counted over the window (0: hydrostatic).  Returns the SIM1
+    launches."""
+    from fv3jedi_lm_tpu_torch import debug, timing
+    from fv3jedi_lm_tpu_torch.config import DynConfig, LMConfig
+    from fv3jedi_lm_tpu_torch.lm import LinearModel
+    from fv3jedi_lm_tpu_torch.ops.cuda_sim1 import sim1_solver_cuda
+
+    def sync_time(fn, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def check(d, what, keys, nonzero=True):
+        for k in keys:
+            if not bool(torch.isfinite(d[k]).all()):
+                raise AssertionError(f"window {what} {k}: not finite")
+            if nonzero and not bool((d[k] != 0).any()):
+                raise AssertionError(f"window {what} {k}: all zero")
+
+    def window(saveltraj):
+        cfg = LMConfig(dyn=DynConfig(**WINDOW_KW, **PRODUCTION_OPTIONS,
+                                     compute_omega=True),
+                       dt=FULL_DT, nt=nt, saveltraj=saveltraj)
+        lm = LinearModel.create(cfg)
+        traj0, pert = _bench_case(lm)
+        trajs, t_nl = sync_time(lm.run_nl, traj0)
+        for tr in trajs[1:]:
+            check(tr, "run_nl", lm.prog_3d + ("omga",), nonzero=False)
+        return lm, trajs, pert, t_nl
+
+    sim1_solver_cuda.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    timing.timing_reset()
+    timing.enable(True)
+    lm, trajs, pert, t_nl = window(True)
+    omga = max(float(tr["omga"].abs().max()) for tr in trajs[1:])
+    runs = []
+    for _ in range(2):
+        tl, t_tl = sync_time(lm.run_tl, trajs, pert)
+        ad, t_ad = sync_time(lm.run_ad, trajs, tl)
+        runs.append((t_tl, t_ad))
+    timing.enable(False)
+    peak = torch.cuda.max_memory_allocated()
+    check(tl, "run_tl", lm.prog_3d)
+    check(ad, "run_ad", lm.prog_3d)
+    lhs = dot(tl, tl, lm.prog_3d)
+    rhs = dot(pert, ad, lm.prog_3d)
+    rel = abs(lhs - rhs) / max(abs(lhs), 1e-300)
+    if not rel < 1e-3:
+        raise AssertionError(f"window: dot-product error {rel}")
+    if not float(tl["u"].abs().max()) < 1e3:
+        raise AssertionError("window: the TL grew from a 1e-3 perturbation "
+                             f"to {float(tl['u'].abs().max())} m/s")
+    cached = debug.cache_bytes(lm)
+    if len(cached) != nt:
+        raise AssertionError(f"window: {len(cached)} cached steps, want {nt}")
+    tag = f"({card[0]}; {card[1]})"
+    print(f"[window_full] c96L72 hydrostatic f32 dt=900 nt={nt}, pert "
+          f"sponge d2_bg_k1/k2/ks_pert 0.2/0.12/0.06, with "
+          f"{PRODUCTION_OPTIONS} and compute_omega: run_nl {t_nl:.4f} s "
+          f"({t_nl / nt:.4f} s a step); max|omga| {omga:.4e} Pa/s "
+          f"{tag}", flush=True)
+    for i, (t_tl, t_ad) in enumerate(runs):
+        print(f"[window_full] {'first' if i == 0 else 'warm'} window: "
+              f"run_tl {t_tl:.4f} s ({t_tl / nt:.4f} s a step), run_ad "
+              f"{t_ad:.4f} s ({t_ad / nt:.4f} s a step), TL+AD "
+              f"{t_tl + t_ad:.4f} s {tag}", flush=True)
+    for i, (ck, tp, mp) in enumerate(cached):
+        print(f"[window_full] cached step {i}: checkpoints {ck} B "
+              f"({ck / 2**30:.3f} GiB), tapes {tp} B ({tp / 2**30:.3f} "
+              f"GiB), total {(ck + tp) / 2**30:.3f} GiB", flush=True)
+    print(f"[window_full] peak device memory {peak / 2**30:.3f} GiB; "
+          f"dot-product <M p, M p> vs <p, M^T M p> relative error "
+          f"{rel:.3e} (float32); max|run_tl u| "
+          f"{float(tl['u'].abs().max()):.4e} from max|p u| "
+          f"{float(pert['u'].abs().max()):.4e} {tag}", flush=True)
+    print("[window_full] host timers (FV3LM_TIMERS), both windows:",
+          flush=True)
+    timing.timing_prt()
+    timing.timing_reset()
+    # the model and its stepper refer to each other: collect the cycle, so
+    # that the first window's cache is freed before the second
+    del lm, trajs, tl, ad
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    lm, trajs, pert, _ = window(False)
+    tl, t_tl = sync_time(lm.run_tl, trajs, pert)
+    ad, t_ad = sync_time(lm.run_ad, trajs, tl)
+    check(ad, "run_ad (saveltraj=False)", lm.prog_3d)
+    print(f"[window_full] saveltraj=False: run_tl {t_tl:.4f} s, run_ad "
+          f"{t_ad:.4f} s (each step linearized again), peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB {tag}",
+          flush=True)
+    launches = sim1_solver_cuda.launches
+    print(f"[window_full] SIM1 launches over the windows: {launches}",
+          flush=True)
+    if launches != 0:
+        raise AssertionError(f"window: {launches} SIM1 launches on the "
+                             "hydrostatic path")
+    del lm, trajs, tl, ad
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -995,6 +1250,7 @@ def main():
         card)
     phase_tlad_profile(lm, traj, pert, best)
     del lm, traj, pert
+    gc.collect()     # a model and its stepper form a reference cycle
     torch.cuda.empty_cache()
     elapsed("tlad_full + profile")
     phase_phys_small()
@@ -1002,7 +1258,14 @@ def main():
     lm, traj, pert, best, record["launches_phys_c96L72"] = phase_phys_full(
         card)
     phase_phys_profile(lm, traj, pert, best)
+    del lm, traj, pert
+    gc.collect()
+    torch.cuda.empty_cache()
     elapsed("phys_full + profile")
+    phase_options_small()
+    elapsed("options_small")
+    record["launches_window_c96L72"] = phase_window_full(card)
+    elapsed("window_full")
     print(card[1], flush=True)
     print(json.dumps({"kernels": [record]}))
     print(json.dumps({"ok": True, "device": {

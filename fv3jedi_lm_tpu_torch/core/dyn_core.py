@@ -15,8 +15,11 @@ Vertical axis leading: 3-D fields (npz, 6, jy, jx), interface fields
 mode="mixed" is the linearization target of the tangent-linear and adjoint
 sweeps (core/staged.py): d_sw runs the trajectory and the perturbation
 schemes and `freeze.mix_primal` takes the value from the first and the
-derivative from the second (dyn_core_tlm.F90:835-960).  The options beta,
-d_ext, d_con, fill_dp and Rayleigh_fast raise.
+derivative from the second (dyn_core_tlm.F90:835-960).  The options:
+beta > 0 (grad1_p_update / split_p_grad, off-centered with the previous
+substep's gradient), d_ext (the external-mode damping vector), d_con
+(the damping heat source, applied in acoustic_finish), fill_dp (mix_dp
+after d_sw) and Rayleigh_fast (an inline per-level drag factor).
 """
 
 from __future__ import annotations
@@ -27,12 +30,12 @@ import torch
 from .. import NG
 from ..constants import CP as CP_AIR
 from ..constants import GRAV, RGAS
-from ..ops.a2b_edge import a2b_ord4
+from ..ops.a2b_edge import a2b_ord2, a2b_ord4
 from ..ops.d_sw import d_sw
 from ..ops.sw_core import F2P, SL, c_sw
 from ..parallel import halo
 from ..timing import scope
-from .freeze import fbool, fmax, mix_primal
+from .freeze import fabs, fbool, fmax, fmin, fscan, fsign_mul, mix_primal
 from .nh_core import riem_solver3, riem_solver_c, update_dz_c, update_dz_d
 
 
@@ -92,9 +95,10 @@ def p_grad_c(dt2, pkc, gz, uc, vc, grid, npx, delpc=None):
     return uc, vc
 
 
-def one_grad_p(u, v, pk, gz, dt, grid, npx, ptop, akap):
-    """D-grid pressure gradient, hydrostatic (dyn_core_nlm.F90:1645-1778),
-    without the external-mode damping (d_ext = 0)."""
+def one_grad_p(u, v, pk, gz, dt, grid, npx, ptop, akap, divg2=None):
+    """D-grid pressure gradient, hydrostatic (dyn_core_nlm.F90:1645-1778);
+    `divg2` (B-grid, from _d_ext_divg2) adds the external-mode damping
+    when d_ext > 0."""
     p = F2P
     n = npx - 1
     npy = npx
@@ -110,12 +114,17 @@ def one_grad_p(u, v, pk, gz, dt, grid, npx, ptop, akap):
 
     bs = SL(1, npx)
     cs = SL(1, n)
+    if divg2 is not None:
+        wk2 = divg2[..., bs, p(1):p(n) + 1] - divg2[..., bs, p(2):p(npx) + 1]
+        wk1 = divg2[..., p(1):p(n) + 1, bs] - divg2[..., p(2):p(npy) + 1, bs]
+    else:
+        wk2 = wk1 = 0.0
     wk = pk_b[1:] - pk_b[:-1]
     b0 = slice(p(1), p(n) + 1)    # B cols i for u's cells 1..n
     b1 = slice(p(2), p(npx) + 1)  # B cols i+1
     u_new = u.clone()
     u_new[..., bs, cs] = rdx[..., bs, cs] * (
-        0.0 + u[..., bs, cs]
+        wk2 + u[..., bs, cs]
         + dt / (wk[..., bs, b0] + wk[..., bs, b1])
         * ((gz_b[1:][..., bs, b0] - gz_b[:-1][..., bs, b1])
            * (pk_b[1:][..., bs, b1] - pk_b[:-1][..., bs, b0])
@@ -125,13 +134,102 @@ def one_grad_p(u, v, pk, gz, dt, grid, npx, ptop, akap):
     r1 = slice(p(2), p(npy) + 1)
     v_new = v.clone()
     v_new[..., cs, bs] = rdy[..., cs, bs] * (
-        0.0 + v[..., cs, bs]
+        wk1 + v[..., cs, bs]
         + dt / (wk[..., r0, bs] + wk[..., r1, bs])
         * ((gz_b[1:][..., r0, bs] - gz_b[:-1][..., r1, bs])
            * (pk_b[1:][..., r1, bs] - pk_b[:-1][..., r0, bs])
            + (gz_b[:-1][..., r0, bs] - gz_b[1:][..., r1, bs])
            * (pk_b[1:][..., r0, bs] - pk_b[:-1][..., r1, bs])))
     return u_new, v_new
+
+
+def _grad(gz_b, f_b, den, dt, r0, c0, r1, c1):
+    """One component of the B-grid pressure-gradient integral."""
+    return dt / (den[..., r0, c0] + den[..., r1, c1]) * (
+        (gz_b[1:][..., r0, c0] - gz_b[:-1][..., r1, c1])
+        * (f_b[1:][..., r1, c1] - f_b[:-1][..., r0, c0])
+        + (gz_b[:-1][..., r0, c0] - gz_b[1:][..., r1, c1])
+        * (f_b[1:][..., r0, c0] - f_b[:-1][..., r1, c1]))
+
+
+def grad1_p_update(u, v, pk, gz, divg2, du, dv, dt, grid, npx, ptop, akap,
+                   beta_d):
+    """Hydrostatic beta > 0 off-centered pressure gradient (grad1_p_update,
+    dyn_core_nlm.F90:1781-1872): beta_d of the previous substep's gradient
+    (du/dv, zero at each dyn_core entry; beta_d == 0 on the first substep,
+    :367-374) plus (1 - beta_d) of the current one.  Returns the winds and
+    the current gradients for the next substep."""
+    p = F2P
+    n = npx - 1
+    npy = npx
+    rdx = grid["rdx"]
+    rdy = grid["rdy"]
+    jb = u.shape[-2]
+    alpha = 1.0 - beta_d
+
+    top = pk.new_full(pk.shape[1:-2] + (jb, jb), ptop ** akap)[None]
+    pk_b = torch.cat([top, a2b_ord4(pk[1:], grid)])
+    gz_b = a2b_ord4(gz, grid)
+    wk = pk_b[1:] - pk_b[:-1]
+
+    bs = SL(1, npx)
+    cs = SL(1, n)
+    b0 = slice(p(1), p(n) + 1)
+    b1 = slice(p(2), p(npx) + 1)
+    du_new = _grad(gz_b, pk_b, wk, dt, bs, b0, bs, b1)
+    wk2 = divg2[..., bs, p(1):p(n) + 1] - divg2[..., bs, p(2):p(npx) + 1]
+    u_new = u.clone()
+    u_new[..., bs, cs] = ((u[..., bs, cs] + beta_d * du + wk2
+                           + alpha * du_new) * rdx[..., bs, cs])
+    r0 = slice(p(1), p(n) + 1)
+    r1 = slice(p(2), p(npy) + 1)
+    dv_new = _grad(gz_b, pk_b, wk, dt, r0, bs, r1, bs)
+    wk1 = divg2[..., p(1):p(n) + 1, bs] - divg2[..., p(2):p(npy) + 1, bs]
+    v_new = v.clone()
+    v_new[..., cs, bs] = ((v[..., cs, bs] + beta_d * dv + wk1
+                           + alpha * dv_new) * rdy[..., cs, bs])
+    return u_new, v_new, du_new, dv_new
+
+
+def split_p_grad(u, v, pp, gz, delp, pk3, du, dv, dt, grid, npx, ptop, akap,
+                 beta_d):
+    """Nonhydrostatic beta > 0 off-centered pressure gradient
+    (split_p_grad, dyn_core_nlm.F90:1531-1641, use_logp=.false.): the
+    hydrostatic component off-centered with the previous substep's stored
+    gradient (du/dv), the perturbation-pressure component applied in full
+    each substep."""
+    p = F2P
+    n = npx - 1
+    npy = npx
+    rdx = grid["rdx"]
+    rdy = grid["rdy"]
+    jb = u.shape[-2]
+    alpha = 1.0 - beta_d
+
+    top_pk = pk3.new_full(pk3.shape[1:-2] + (jb, jb), ptop ** akap)[None]
+    pk_b = torch.cat([top_pk, a2b_ord4(pk3[1:], grid)])
+    pp_b = torch.cat([torch.zeros_like(top_pk), a2b_ord4(pp[1:], grid)])
+    gz_b = a2b_ord4(gz, grid)
+    dp_b = a2b_ord4(delp, grid)
+    wk = pk_b[1:] - pk_b[:-1]
+
+    bs = SL(1, npx)
+    cs = SL(1, n)
+    b0 = slice(p(1), p(n) + 1)
+    b1 = slice(p(2), p(npx) + 1)
+    du_new = _grad(gz_b, pk_b, wk, dt, bs, b0, bs, b1)
+    dun = _grad(gz_b, pp_b, dp_b, dt, bs, b0, bs, b1)
+    u_new = u.clone()
+    u_new[..., bs, cs] = ((u[..., bs, cs] + beta_d * du + alpha * du_new
+                           + dun) * rdx[..., bs, cs])
+    r0 = slice(p(1), p(n) + 1)
+    r1 = slice(p(2), p(npy) + 1)
+    dv_new = _grad(gz_b, pk_b, wk, dt, r0, bs, r1, bs)
+    dvn = _grad(gz_b, pp_b, dp_b, dt, r0, bs, r1, bs)
+    v_new = v.clone()
+    v_new[..., cs, bs] = ((v[..., cs, bs] + beta_d * dv + alpha * dv_new
+                           + dvn) * rdy[..., cs, bs])
+    return u_new, v_new, du_new, dv_new
 
 
 def nh_p_grad(u, v, pp, gz, delp, pk3, dt, grid, npx, ptop, akap):
@@ -158,26 +256,168 @@ def nh_p_grad(u, v, pp, gz, delp, pk3, dt, grid, npx, ptop, akap):
     cs = SL(1, n)
     b0 = slice(p(1), p(n) + 1)
     b1 = slice(p(2), p(npx) + 1)
-
-    def grad(f_b, den, r0, c0, r1, c1):
-        return dt / (den[..., r0, c0] + den[..., r1, c1]) * (
-            (gz_b[1:][..., r0, c0] - gz_b[:-1][..., r1, c1])
-            * (f_b[1:][..., r1, c1] - f_b[:-1][..., r0, c0])
-            + (gz_b[:-1][..., r0, c0] - gz_b[1:][..., r1, c1])
-            * (f_b[1:][..., r0, c0] - f_b[:-1][..., r1, c1]))
-
-    du1 = grad(pk_b, wk, bs, b0, bs, b1)
-    dun = grad(pp_b, dp_b, bs, b0, bs, b1)
+    du1 = _grad(gz_b, pk_b, wk, dt, bs, b0, bs, b1)
+    dun = _grad(gz_b, pp_b, dp_b, dt, bs, b0, bs, b1)
     u_new = u.clone()
     u_new[..., bs, cs] = (u[..., bs, cs] + du1 + dun) * rdx[..., bs, cs]
 
     r0 = slice(p(1), p(n) + 1)
     r1 = slice(p(2), p(npy) + 1)
-    dv1 = grad(pk_b, wk, r0, bs, r1, bs)
-    dvn = grad(pp_b, dp_b, r0, bs, r1, bs)
+    dv1 = _grad(gz_b, pk_b, wk, dt, r0, bs, r1, bs)
+    dvn = _grad(gz_b, pp_b, dp_b, dt, r0, bs, r1, bs)
     v_new = v.clone()
     v_new[..., cs, bs] = (v[..., cs, bs] + dv1 + dvn) * rdy[..., cs, bs]
     return u_new, v_new
+
+
+def del2_cubed(q, cd, grid, topo, nmax, npx):
+    """Del-2 filter, e.g. of omega or the heat source (dyn_core_nlm.F90:
+    2090-2199): min(3, nmax) passes, each a 3-cell mean at the four cube
+    corners then one del-2 flux divergence."""
+    p = F2P
+    n = npx - 1
+    npy = npx
+    jc = q.shape[-1]
+    del6_u = grid["del6_u"]
+    del6_v = grid["del6_v"]
+    rarea = grid["rarea"]
+    c3 = 1.0 / 3.0
+    q = halo.fill_halo_center(q, topo)
+    for _ in range(min(3, nmax)):
+        q = q.clone()
+        for (ci, cj), (ai, aj), (bi, bj) in (
+                ((1, 1), (0, 1), (1, 0)),
+                ((n, 1), (npx, 1), (n, 0)),
+                ((n, n), (npx, n), (n, npy)),
+                ((1, n), (0, n), (1, npy))):
+            m = (q[..., p(cj), p(ci)] + q[..., p(aj), p(ai)]
+                 + q[..., p(bj), p(bi)]) * c3
+            q[..., p(cj), p(ci)] = m
+            q[..., p(aj), p(ai)] = m
+            q[..., p(bj), p(bi)] = m
+        qx = halo.copy_corners(q, topo, 1)
+        fx = del6_v[..., :, 1:jc] * (qx[..., :, 0:jc - 1] - qx[..., :, 1:jc])
+        qy = halo.copy_corners(q, topo, 2)
+        fy = del6_u[..., 1:jc, :] * (qy[..., 0:jc - 1, :] - qy[..., 1:jc, :])
+        q = q.clone()
+        q[..., 1:jc - 1, 1:jc - 1] += cd * rarea[..., 1:jc - 1, 1:jc - 1] * (
+            fx[..., 1:jc - 1, 0:jc - 2] - fx[..., 1:jc - 1, 1:jc - 1]
+            + fy[..., 0:jc - 2, 1:jc - 1] - fy[..., 1:jc - 1, 1:jc - 1])
+    return q
+
+
+def pem_interfaces(delp, ptop):
+    """Interface pressures from the padded delp (the pem capture at the
+    start of the last acoustic substep, dyn_core_nlm.F90:378-392)."""
+    return torch.cat([delp.new_full((1,) + delp.shape[1:], ptop),
+                      ptop + torch.cumsum(delp, dim=0)])
+
+
+def adv_pe(ua, va, pem, om, grid, npx):
+    """Omega's advective term V . grad(pe) by Green's theorem
+    (dyn_core_nlm.F90:1263-1364, use_old_omega path).
+
+    ua/va: the A-grid contravariant winds of the last substep's c_sw; pem:
+    the interface pressures captured at the start of that substep; om:
+    (pe - pem)*rdt on the padded domain.  Interface winds are mid-level
+    averages (the bottom layer its own); grad(pe) comes from B-grid corner
+    pressures (a2b_ord2) integrated around each cell with the en1/en2 edge
+    normals.  Returns om with the term added on the compute lanes."""
+    p = F2P
+    n = npx - 1
+    cs = SL(1, n)
+    bs = SL(1, npx)
+    b0 = slice(p(1), p(n) + 1)
+    b1 = slice(p(2), p(npx) + 1)
+
+    up = torch.cat([0.5 * (ua[:-1] + ua[1:]), ua[-1:]])
+    vp = torch.cat([0.5 * (va[:-1] + va[1:]), va[-1:]])
+    v3 = (up[None][..., cs, cs] * grid["ec1"][:, None][..., cs, cs]
+          + vp[None][..., cs, cs] * grid["ec2"][:, None][..., cs, cs])
+    pb = a2b_ord2(pem[1:], grid)
+    pdx = ((pb[..., bs, b0] + pb[..., bs, b1])
+           * grid["dx"][..., bs, cs] * grid["en1"][:, None][..., bs, cs])
+    pdy = ((pb[..., b0, bs] + pb[..., b1, bs])
+           * grid["dy"][..., cs, bs] * grid["en2"][:, None][..., cs, bs])
+    grad = ((pdx[..., 1:, :] - pdx[..., :-1, :])
+            + (pdy[..., :, 1:] - pdy[..., :, :-1]))
+    om = om.clone()
+    om[..., cs, cs] += 0.5 * grid["rarea"][..., cs, cs] * (v3 * grad).sum(0)
+    return om
+
+
+def mix_dp(delp, pt, w, dp_ref, hydrostatic):
+    """Thin-layer delp mixing (mix_dp, dyn_core_nlm.F90:1875-1952), after
+    d_sw in every acoustic substep when `fill_dp` is on (:697): a layer
+    thinner than dpmin(k) = 1 % of its reference thickness borrows mass
+    from the layer below, mixing pt (and w when nonhydrostatic)
+    conservatively; the bottom layer borrows from the (already mixed)
+    layer above.  The downward pass is sequential in k (a layer's
+    borrowing thins the next one before it is examined), a frozen-branch
+    `fscan` (MIX_DP_TLM's PUSHCONTROL, dyn_core_tlm.F90:4385)."""
+    npz = delp.shape[0]
+    if npz < 2:
+        return delp, pt, w
+    dpmin = torch.as_tensor(0.01 * np.asarray(dp_ref), dtype=delp.dtype,
+                            device=delp.device)
+    nh = (w is not None) and (not hydrostatic)
+    wz = w if nh else torch.zeros_like(pt)
+
+    def body(delp_cur, x):
+        dpm, delp_next, pt_k, pt_next, w_k, w_next = x
+        need = fbool(delp_cur < dpm)
+        dp = torch.where(need, dpm - delp_cur, 0.0)
+        pt_new = torch.where(need, (pt_k * delp_cur + pt_next * dp) / dpm,
+                             pt_k)
+        w_new = torch.where(need, (w_k * delp_cur + w_next * dp) / dpm, w_k)
+        delp_new = torch.where(need, dpm, delp_cur)
+        return delp_next - dp, (delp_new, pt_new, w_new)
+
+    xs = (dpmin[:-1], delp[1:], pt[:-1], pt[1:], wz[:-1], wz[1:])
+    last, (delp_o, pt_o, w_o) = fscan(body, delp[0], xs)
+
+    # bottom layer: borrow from the layer above (its mixed values)
+    dpm_b = dpmin[-1]
+    need_b = fbool(last < dpm_b)
+    dp_b = torch.where(need_b, dpm_b - last, 0.0)
+    pt_b = torch.where(need_b, (pt[-1] * last + pt_o[-1] * dp_b) / dpm_b,
+                       pt[-1])
+    w_b = torch.where(need_b, (wz[-1] * last + w_o[-1] * dp_b) / dpm_b,
+                      wz[-1])
+    delp_b = torch.where(need_b, dpm_b, last)
+    delp_out = torch.cat([delp_o[:-1], (delp_o[-1] - dp_b)[None],
+                          delp_b[None]])
+    pt_out = torch.cat([pt_o, pt_b[None]])
+    if not nh:
+        return delp_out, pt_out, w
+    return delp_out, pt_out, torch.cat([w_o, w_b[None]])
+
+
+def _rayleigh_fast_factor(cfg, npz, dt, ptop, pm, like):
+    """Per-level inline Rayleigh drag factor rf(k) = 1/(1 + dt/tau0*sin^2)
+    (Rayleigh_fast, dyn_core_nlm.F90:2219-2287); 1 below rf_cutoff.  A
+    (npz, 1, 1, 1) tensor like `like`."""
+    rff = np.ones(npz)
+    for k in range(npz):
+        if pm[k] < cfg.rf_cutoff:
+            r = (dt / (cfg.tau * 86400.0)
+                 * np.sin(0.5 * np.pi * np.log(cfg.rf_cutoff / pm[k])
+                          / np.log(cfg.rf_cutoff / ptop)) ** 2)
+            rff[k] = 1.0 / (1.0 + r)
+        else:
+            break
+    return torch.as_tensor(rff.reshape(npz, 1, 1, 1), dtype=like.dtype,
+                           device=like.device)
+
+
+def _d_ext_divg2(delp_b, divd_b, d2_ext):
+    """divg2 = d_ext*da_min_c * sum_k(delp_b*div_b)/sum_k(delp_b) at B
+    points (dyn_core_nlm.F90:707-728); the inputs are per-level B-grid
+    tensors, zero outside B 1..npx, where the quotient is masked."""
+    wk = delp_b.sum(0)
+    dv = (delp_b * divd_b).sum(0)
+    wkpos = fbool(wk > 0.0)
+    return torch.where(wkpos, d2_ext * dv / torch.where(wkpos, wk, 1.0), 0.0)
 
 
 def _kcoef(cfg, npz, dtype, device):
@@ -317,18 +557,6 @@ def _traj_sponge_hords(cfg, npz):
         cfg.hord_ks_traj)
 
 
-def _check_slice(cfg):
-    """The options the port runs; everything else raises."""
-    unported = dict(beta=cfg.beta > 0.0, d_ext=cfg.d_ext > 0.0,
-                    d_con=cfg.d_con > 1.0e-5, fill_dp=cfg.fill_dp,
-                    rayleigh_fast=cfg.rayleigh_fast and cfg.tau > 0.0)
-    bad = [k for k, v in unported.items() if v]
-    if bad:
-        raise NotImplementedError(
-            f"dynamics options {bad}: ROADMAP Queue 1, remaining dynamics "
-            "options")
-
-
 def acoustic_carry(state, cfg, npz):
     """Initial acoustic-loop carry from the interface state (zeroed heat
     source and vert block, filled by the final substep; NH interface
@@ -348,6 +576,14 @@ def acoustic_carry(state, cfg, npz):
         pk=u.new_zeros((npz + 1,) + lead[1:] + (jc, jc)),
         pkz=u.new_zeros(lead + (jc, jc)),
     )
+    if cfg.beta > 0.0:
+        # the previous substep's pressure gradient and the substep counter
+        # of the off-centering (dyn_core_nlm.F90:254-258), zero at every
+        # dyn_core entry: beta_d = 0 on substep 1 is the reference's
+        # it == 1 reset (:367-374)
+        out["du"] = u.new_zeros(lead + (cfg.npx, n))
+        out["dv"] = u.new_zeros(lead + (n, cfg.npx))
+        out["itc"] = u.new_zeros(())
     if not cfg.hydrostatic:
         # interface heights from delz, zh(km+1) = zs (dyn_core_nlm.F90:
         # 323-352)
@@ -366,7 +602,7 @@ def _detached(args):
 
 
 def make_acoustic_substep(grid, topo, cfg, dt_remap, akap, ptop, npz, dtype,
-                          mode="traj", dp_ref=None):
+                          mode="traj", dp_ref=None, pm=None):
     """Build the one-acoustic-substep function substep(carry, consts);
     consts = {"phis": padded surface geopotential}.  Stages a, b, c are
     exposed as `substep.stages` (the adjoint takes one stage's vjp at a
@@ -376,11 +612,12 @@ def make_acoustic_substep(grid, topo, cfg, dt_remap, akap, ptop, npz, dtype,
     on the card.  mode="mixed": the linearization target (module
     docstring); it calls the plain `nh_core.sim1_solver`, which the sweeps
     differentiate, as the JAX package does (its Pallas SIM1 serves the
-    trajectory path only)."""
+    trajectory path only).  dp_ref/pm: the reference thickness and
+    pressure of each level (fill_dp, NH, Rayleigh_fast)."""
     if mode not in ("traj", "mixed"):
         raise ValueError(f"acoustic substep mode {mode!r}")
-    _check_slice(cfg)
     npx = cfg.npx
+    jb = npx + 2 * NG
     dt = dt_remap / cfg.n_split
     dt2 = 0.5 * dt
     device = grid["area"].device
@@ -400,6 +637,10 @@ def make_acoustic_substep(grid, topo, cfg, dt_remap, akap, ptop, npz, dtype,
         kcoef_p = _kcoef_pert(cfg, npz, dtype, device) if mix_damp else kcoef
     else:
         hords_p = kcoef_p = None
+    rff = None
+    if cfg.rayleigh_fast and cfg.tau > 0.0 and pm is not None:
+        rff = _rayleigh_fast_factor(cfg, npz, abs(dt), ptop, pm,
+                                    grid["area"])
 
     def stage_a(c, consts):
         """halo(u,v[,w]) -> c_sw -> geopk/p_grad_c (hydrostatic) or
@@ -438,8 +679,12 @@ def make_acoustic_substep(grid, topo, cfg, dt_remap, akap, ptop, npz, dtype,
                   divgd=divgd, ua=ua, va=va,
                   mfx=c["mfx"], mfy=c["mfy"], cx=c["cx"], cy=c["cy"],
                   heat_source=c["heat_source"])
+        if cfg.beta > 0.0:
+            ab.update(du=c["du"], dv=c["dv"], itc=c["itc"])
         if not cfg.hydrostatic:
             ab.update(zh=c["zh"], delz=c["delz"], ws=c["ws"])
+        if cfg.d_ext > 0.0:
+            ab["wk_dext"] = a2b_ord2(c["delp"], grid)   # per-level B delp
         return ab
 
     def stage_b(ab, consts):
@@ -465,6 +710,15 @@ def make_acoustic_substep(grid, topo, cfg, dt_remap, akap, ptop, npz, dtype,
                            hords_p["hord_tm"], hords_p["hord_dp"],
                            kcoef_p, hydrostatic=cfg.hydrostatic)
             r = mix_primal(r, r_p)
+        if cfg.fill_dp:
+            # thin-layer delp mixing before the delp/pt halo refresh
+            # (dyn_core_nlm.F90:697)
+            w_in = None if cfg.hydrostatic else r["w"]
+            dmix, tmix, wmix = mix_dp(r["delp"], r["pt"], w_in, dp_ref,
+                                      cfg.hydrostatic)
+            r = dict(r, delp=dmix, pt=tmix)
+            if w_in is not None:
+                r["w"] = wmix
         bc = dict(
             delp=r["delp"], pt=r["pt"], u=r["u"], v=r["v"],
             w=ab["w"] if cfg.hydrostatic else r["w"],
@@ -473,27 +727,54 @@ def make_acoustic_substep(grid, topo, cfg, dt_remap, akap, ptop, npz, dtype,
             heat_source=ab["heat_source"] + r["heat_source"],
             uc=ab["uc"], vc=ab["vc"],
         )
+        if cfg.beta > 0.0:
+            bc.update(du=ab["du"], dv=ab["dv"], itc=ab["itc"])
         if not cfg.hydrostatic:
             bc.update(zh=ab["zh"], delz=ab["delz"], ws=ab["ws"],
                       # per-substep courant numbers / area fluxes for
                       # update_dz_d
                       crx=r["crx"], cry=r["cry"], xfx=r["xfx"], yfx=r["yfx"])
+        if cfg.d_ext > 0.0:
+            bc["wk_dext"] = ab["wk_dext"]
         return bc
 
     def stage_c(bc, consts):
-        """halo(delp,pt) -> geopk -> one_grad_p (hydrostatic), or
-        update_dz_d -> Riem_Solver3 -> nh_p_grad (NH, dyn_core_nlm.F90:
-        762-880; pkz is the instantaneous NH equation of state)."""
+        """halo(delp,pt) -> geopk -> one_grad_p / grad1_p_update
+        (hydrostatic), or update_dz_d -> Riem_Solver3 -> nh_p_grad /
+        split_p_grad (NH, dyn_core_nlm.F90:762-880; pkz is the
+        instantaneous NH equation of state) [-> Rayleigh_fast]."""
         phis = consts["phis"]
         delp = halo.fill_halo_center(bc["delp"], topo)
         pt = halo.fill_halo_center(bc["pt"], topo)
+        u, v = bc["u"], bc["v"]
+        # the external-mode damping vector (dyn_core_nlm.F90:707-728)
+        if cfg.d_ext > 0.0:
+            divg2 = _d_ext_divg2(bc["wk_dext"], bc["divd_b"],
+                                 cfg.d_ext * grid["da_min_c"])
+        else:
+            divg2 = None
+        if cfg.beta > 0.0:
+            # no off-centering on the first substep of a dyn_core call
+            # (beta_d = 0, dyn_core_nlm.F90:367-374)
+            itc = bc["itc"]
+            beta_d = torch.where(itc == 0.0, torch.zeros_like(itc),
+                                 torch.full_like(itc, cfg.beta))
+            if divg2 is None:
+                divg2 = u.new_zeros(u.shape[1:-2] + (jb, jb))
         if cfg.hydrostatic:
             with scope("geopk_d"):
                 pe, peln, pkc, gz, pkz = geopk(ptop, delp, pt, phis, akap)
-            with scope("one_grad_p"):
-                u, v = one_grad_p(bc["u"], bc["v"], pkc, gz, dt, grid, npx,
-                                  ptop, akap)
-            extra = {}
+            if cfg.beta > 0.0:
+                with scope("grad1_p_update"):
+                    u, v, du_n, dv_n = grad1_p_update(
+                        u, v, pkc, gz, divg2, bc["du"], bc["dv"], dt, grid,
+                        npx, ptop, akap, beta_d)
+                extra = dict(du=du_n, dv=dv_n, itc=bc["itc"] + 1.0)
+            else:
+                with scope("one_grad_p"):
+                    u, v = one_grad_p(u, v, pkc, gz, dt, grid, npx, ptop,
+                                      akap, divg2)
+                extra = {}
             w = bc["w"]
         else:
             zs_m = phis / GRAV
@@ -512,12 +793,24 @@ def make_acoustic_substep(grid, topo, cfg, dt_remap, akap, ptop, npz, dtype,
             pkz = torch.exp(k1k * torch.log(torch.clamp(
                 rrg * delp / torch.clamp(sol["delz"], max=-1e-2)
                 * torch.clamp(pt, min=1e-10), min=1e-30)))
-            with scope("nh_p_grad"):
-                u, v = nh_p_grad(bc["u"], bc["v"], pp, gz, delp, sol["pk3"],
-                                 dt, grid, npx, ptop, akap)
-            pe, peln, pkc = sol["pe"], sol["peln"], sol["pk3"]
             extra = dict(zh=zh2, delz=sol["delz"], ws=ws)
+            if cfg.beta > 0.0:
+                with scope("split_p_grad"):
+                    u, v, du_n, dv_n = split_p_grad(
+                        u, v, pp, gz, delp, sol["pk3"], bc["du"], bc["dv"],
+                        dt, grid, npx, ptop, akap, beta_d)
+                extra.update(du=du_n, dv=dv_n, itc=bc["itc"] + 1.0)
+            else:
+                with scope("nh_p_grad"):
+                    u, v = nh_p_grad(u, v, pp, gz, delp, sol["pk3"], dt,
+                                     grid, npx, ptop, akap)
+            pe, peln, pkc = sol["pe"], sol["peln"], sol["pk3"]
             w = sol["w"]
+        if rff is not None:
+            u = u * rff
+            v = v * rff
+            if not cfg.hydrostatic:
+                w = w * rff
         return dict(
             u=u, v=v, w=w, delp=delp, pt=pt, uc=bc["uc"], vc=bc["vc"],
             divgd=bc["divgd"],
@@ -533,16 +826,31 @@ def make_acoustic_substep(grid, topo, cfg, dt_remap, akap, ptop, npz, dtype,
     return substep
 
 
-def acoustic_finish(state, carry, topo, cfg, npz):
-    """Post-acoustic-loop work (dyn_core_nlm.F90:935-1100): D-edge single
-    ownership fix.  Returns (state, vert).  The damping heat source is not
-    applied: it needs d_con > 0 (_n_con), which raises."""
-    if cfg.d_con > 1.0e-5 and _n_con(cfg, npz) != 0:
-        raise NotImplementedError(
-            "d_con heat source: ROADMAP Queue 1, remaining dynamics options")
+def acoustic_finish(state, carry, grid, topo, cfg, dt_remap, npz):
+    """Post-acoustic-loop work (dyn_core_nlm.F90:935-1100): the D-edge
+    single-ownership fix, and with d_con the damping heat source into pt
+    (:1051-1100).  Returns (state, vert)."""
     u, v = halo.fix_shared_edges_dgrid(carry["u"], carry["v"], topo)
+    delp, pt = carry["delp"], carry["pt"]
+    n_con = _n_con(cfg, npz)
+    if cfg.d_con > 1.0e-5 and n_con != 0:
+        n = cfg.npx - 1
+        cs = SL(1, n)
+        hs_full = torch.zeros_like(delp)
+        hs_full[..., cs, cs] = carry["heat_source"]
+        hs_full = del2_cubed(hs_full, 0.20 * grid["da_min"], grid, topo,
+                             min(3, cfg.nord + 1), cfg.npx)
+        dtmp = hs_full[..., cs, cs] / (CP_AIR * delp[..., cs, cs])
+        delt = abs(dt_remap) * cfg.delt_max
+        kidx = torch.arange(npz, device=delp.device)[:, None, None, None]
+        upd = torch.where(kidx < 3, dtmp,
+                          fsign_mul(dtmp, fmin(delt, fabs(dtmp)))
+                          ) / carry["pkz"][..., cs, cs]
+        upd = torch.where(kidx < n_con, upd, 0.0)
+        pt = pt.clone()
+        pt[..., cs, cs] += upd
     state = dict(
-        state, u=u, v=v, w=carry["w"], delp=carry["delp"], pt=carry["pt"],
+        state, u=u, v=v, w=carry["w"], delp=delp, pt=pt,
         uc=carry["uc"], vc=carry["vc"], divgd=carry["divgd"],
         mfx=carry["mfx"], mfy=carry["mfy"], cx=carry["cx"], cy=carry["cy"],
     )
@@ -553,19 +861,32 @@ def acoustic_finish(state, carry, topo, cfg, npz):
     return state, vert
 
 
-def dyn_core(state, grid, topo, cfg, dt_remap, akap, ptop, dp_ref):
+def dyn_core(state, grid, topo, cfg, dt_remap, akap, ptop, dp_ref, pm=None,
+             compute_omega=False):
     """One mdt step = n_split trajectory acoustic substeps from the
     interface state.  Returns the final carry (post_acoustic_stage of
-    core/fv_dynamics.py finishes it with acoustic_finish)."""
+    core/fv_dynamics.py finishes it with acoustic_finish) and omega, None
+    unless `compute_omega` on the hydrostatic path: the use_old_omega
+    diagnostic (dyn_core_nlm.F90:378-392, 969-982) captures pem at the
+    start of the last substep, then omega = (pe - pem)*rdt plus adv_pe
+    with that substep's c_sw A-grid winds."""
     dtype = state["u"].dtype
     npz = state["delp"].shape[0]
     substep = make_acoustic_substep(grid, topo, cfg, dt_remap, akap, ptop,
-                                    npz, dtype, dp_ref=dp_ref)
+                                    npz, dtype, dp_ref=dp_ref, pm=pm)
     carry = acoustic_carry(state, cfg, npz)
     consts = dict(phis=state["phis"])
-    for _ in range(cfg.n_split):
+    omega = compute_omega and cfg.hydrostatic
+    for _ in range(cfg.n_split - 1 if omega else cfg.n_split):
         carry = substep(carry, consts)
-    return carry
+    if not omega:
+        return carry, None
+    pem = pem_interfaces(carry["delp"], ptop)
+    sa, sb, sc = substep.stages
+    ab = sa(carry, consts)
+    carry = sc(sb(ab, consts), consts)
+    omga = (carry["pe"][1:] - pem[1:]) * (cfg.n_split / dt_remap)
+    return carry, adv_pe(ab["ua"], ab["va"], pem, omga, grid, cfg.npx)
 
 
 def _n_con(cfg, npz):

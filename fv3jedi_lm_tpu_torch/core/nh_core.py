@@ -21,7 +21,7 @@ import torch
 from .. import NG
 from ..constants import GRAV, RGAS
 from ..ops.cuda_sim1 import sim1_solver_cuda
-from ..ops.sw_core import fill_4corners
+from ..ops.sw_core import del6_vt_flux, fill_4corners
 from ..ops.transport import fv_tp_2d
 from .freeze import fbool, fmax, fscan
 
@@ -240,14 +240,18 @@ def _mono_up(zh):
     return torch.cat([zh_up, zh[-1:]])
 
 
-def update_dz_d(dt, dp0, zs, zh, crx, cry, xfx, yfx, hord, grid, topo):
-    """update_dz_d (nh_utils_nlm.F90:183-295), without del-n damping:
-    advance the D-grid height field with the fv_tp_2d transport of each
-    interface, using edge-profile-reconstructed courant numbers/area
-    fluxes, then the monotonicity floor and surface vertical velocity.
+def update_dz_d(dt, dp0, zs, zh, crx, cry, xfx, yfx, hord, grid, topo,
+                damp=None, ndif=0):
+    """update_dz_d (nh_utils_nlm.F90:183-295): advance the D-grid height
+    field with the fv_tp_2d transport of each interface, using
+    edge-profile-reconstructed courant numbers/area fluxes, the optional
+    del-n damping, then the monotonicity floor and surface vertical
+    velocity.
 
     crx/xfx: (km, 6, jy, n+1) at D x-edges (from d_sw); cry/yfx mirrored;
-    zh (km+1, 6, jc, jc) heights in meters.  Returns (zh_new, ws)."""
+    zh (km+1, 6, jc, jc) heights in meters; damp None or a (km+1, 1, 1, 1)
+    del-n damping coefficient of static order ndif.  Returns
+    (zh_new, ws)."""
     rdt = 1.0 / dt
     area = grid["area"]
     jc = zh.shape[-1]
@@ -267,8 +271,17 @@ def update_dz_d(dt, dp0, zs, zh, crx, cry, xfx, yfx, hord, grid, topo):
            + (fx[..., :, :-1] - fx[..., :, 1:])
            + (fy[..., :-1, :] - fy[..., 1:, :]))
     den = ra_x[..., cs, :] + ra_y[..., :, cs] - area[..., cs, cs]
+    zh_c = num / den
+    if damp is not None and ndif > 0:
+        _, fx2, fy2 = del6_vt_flux(ndif, damp, zh, grid, topo)
+        bs = slice(NG, jc - NG + 1)
+        fx2 = fx2[..., cs, bs]
+        fy2 = fy2[..., bs, cs]
+        zh_c = zh_c + ((fx2[..., :, :-1] - fx2[..., :, 1:])
+                       + (fy2[..., :-1, :] - fy2[..., 1:, :])
+                       ) * grid["rarea"][..., cs, cs]
     zh_new = zh.clone()
-    zh_new[..., cs, cs] = num / den
+    zh_new[..., cs, cs] = zh_c
 
     ws = (zs - zh_new[-1]) * rdt
     return _mono_up(zh_new), ws

@@ -40,7 +40,8 @@ from ..timing import scope
 from . import freeze
 from .dyn_core import acoustic_carry, make_acoustic_substep
 from .fv_dynamics import (post_acoustic_stage, pre_acoustic_stage,
-                          prep_stage, reference_thickness)
+                          prep_stage, reference_pressure,
+                          reference_thickness)
 
 
 # ---- pytrees of tensors (dicts, lists, tuples) ---------------------------
@@ -139,13 +140,14 @@ class StagedStepper:
         ak = torch.as_tensor(lm.ak, dtype=lm.dtype, device=lm.device)
         bk = torch.as_tensor(lm.bk, dtype=lm.dtype, device=lm.device)
         dp_ref = reference_thickness(lm.ak, lm.bk)
+        pm = reference_pressure(lm.ak, lm.bk)
         npz = dyn.npz
 
         # ---- the stage functions ----
         def prep(prog, phis):
             st, q = lm._pad(prog)
             st["phis"] = lm._pad_phis(phis)
-            return prep_stage(st, q, topo, dyn, ptop)
+            return prep_stage(st, q, grid, topo, dyn, ptop)
 
         def pre(st):
             st2, dp1 = pre_acoustic_stage(st, topo, dyn)
@@ -153,11 +155,14 @@ class StagedStepper:
 
         def post(st2, carry, q, dp1, last, mode):
             return post_acoustic_stage(st2, carry, q, dp1, grid, topo, dyn,
-                                       ak, bk, last, mode=mode)
+                                       ak, bk, pm, ptop, mdt, last,
+                                       mode=mode)
 
         def unpad_T(pb):
             """Transpose of lm._unpad: the compute-domain cotangent in
-            zero-padded internal state (the keys _unpad reads)."""
+            zero-padded internal state (the keys _unpad reads; every
+            other key of the state, consv_te's te0_2d included, has a zero
+            cotangent, which `vjp` supplies for a missing key)."""
             n = dyn.nx
             jc = n + 2 * NG
             jb = jc + 1
@@ -183,16 +188,19 @@ class StagedStepper:
                             unpad_T=unpad_T)
         self._sub_traj = make_acoustic_substep(
             grid, topo, dyn, mdt, KAPPA, ptop, npz, lm.dtype, mode="traj",
-            dp_ref=dp_ref)
+            dp_ref=dp_ref, pm=pm)
         self._sub_mix = make_acoustic_substep(
             grid, topo, dyn, mdt, KAPPA, ptop, npz, lm.dtype, mode="mixed",
-            dp_ref=dp_ref)
+            dp_ref=dp_ref, pm=pm)
 
         # Checkpoint pruning (core/staged.py of the JAX package): carry
         # fields the substep overwrites before reading them (pe/peln/pk/pkz
         # from geopk or the Riemann solver, uc/vc/divgd from c_sw) and the
         # purely linear flux/courant accumulators carry no linearization
         # information, so zeros stand in for them; hydrostatic, w is inert.
+        # With beta > 0 the previous substep's gradient du/dv is read
+        # nonlinearly (beta_d*du, and beta_d from the counter itc) and is
+        # kept.
         self._prune = ("pe", "peln", "pk", "pkz", "uc", "vc", "divgd",
                        "mfx", "mfy", "cx", "cy", "heat_source")
         if dyn.hydrostatic:

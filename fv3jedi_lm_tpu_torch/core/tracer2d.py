@@ -20,15 +20,13 @@ from .freeze import fbool
 
 
 def tracer_2d(q, dp1, mfx, mfy, cx, cy, grid, topo, cfg, npx, hord_tr,
-              trdm=0.0):
+              nord_tr=0, trdm=0.0):
     """Advect tracers q (list of (npz,6,jc,jc) tensors) over one mdt.
 
-    dp1: delp BEFORE dyn_core; mfx/mfy/cx/cy: accumulated fluxes/courant.
-    Returns the updated tracer list."""
-    if trdm > 1.0e-4:
-        raise NotImplementedError(
-            "tracer damping (trdm2): ROADMAP Queue 1, remaining dynamics "
-            "options")
+    dp1: delp BEFORE dyn_core; mfx/mfy/cx/cy: accumulated fluxes/courant;
+    nord_tr/trdm: the del-n damping of the first sub-cycle
+    (fv_tracer2d_nlm.F90, damp_c = trdm2).  Returns the updated tracer
+    list."""
     n = npx - 1
     npy = npx
     p = F2P
@@ -57,7 +55,7 @@ def tracer_2d(q, dp1, mfx, mfy, cx, cy, grid, topo, cfg, npx, hord_tr,
 
     cs = SL(1, n)
     qs = torch.stack(q, dim=0)          # tracers as a leading batch dim
-    for _ in range(nsplt):
+    for it in range(nsplt):
         dp2 = dp1.clone()
         dp2[..., cs, cs] += (((mfx[..., :, :-1] - mfx[..., :, 1:])
                               + (mfy[..., :-1, :] - mfy[..., 1:, :]))
@@ -66,9 +64,14 @@ def tracer_2d(q, dp1, mfx, mfy, cx, cy, grid, topo, cfg, npx, hord_tr,
         ra_y = area[..., cs, :] + (yfx[..., :-1, :] - yfx[..., 1:, :])
         qs = halo.fill_halo_center(qs, topo)
 
+        if it == 0 and trdm > 1.0e-4:
+            damp = dict(mass=dp1, nord=nord_tr, damp_c=trdm)
+        else:
+            damp = {}
+
         def tp(qq):
             return fv_tp_2d(qq, cx, cy, hord_tr, xfx, yfx, grid, topo, ra_x,
-                            ra_y, mfx=mfx, mfy=mfy)
+                            ra_y, mfx=mfx, mfy=mfy, **damp)
 
         if freeze.active():
             fxl, fyl = zip(*[tp(qq) for qq in qs.unbind(0)])

@@ -17,7 +17,11 @@ JAX package composes them: dynamics -> moist -> turbulence in `step_nl`
 and `step_tl`, turbulence^T -> moist^T -> dynamics^T in `step_ad`; the
 moist linearization is made at the post-dynamics state and the turbulence
 one at the post-moist state, both cached with the trajectory's
-checkpoints.
+checkpoints.  `run_nl`/`run_tl`/`run_ad` sweep a 4D-Var window of `nt`
+steps; with `saveltraj` the window's linearizations stay cached across
+calls.  `debug.check_state` checks each `step_nl` when FV3LM_DEBUG is set,
+and the host timers (`timing.timing`) time the trajectory's forward and
+record and each sweep when FV3LM_TIMERS is set.
 `traj_from_numpy`/`traj_to_numpy` carry states to and from dicts of numpy
 arrays (the form the JAX package's states take through np.asarray).
 """
@@ -29,7 +33,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
-from . import NG
+from . import NG, debug, timing
 from .config import LMConfig
 from .constants import GRAV, RGAS
 from .grid.eta import default_ak_bk
@@ -203,6 +207,9 @@ class LinearModel:
         if "delz" in st:
             out["w"] = st["w"][:, :, cs, cs]
             out["delz"] = st["delz"][:, :, cs, cs]
+        if "omga" in st:
+            # the vertical pressure velocity (compute_omega)
+            out["omga"] = st["omga"][:, :, cs, cs]
         return out
 
     def _pad_phis(self, phis):
@@ -235,6 +242,11 @@ class LinearModel:
             # the step produced (cfcn as the 5th tracer) keeps its value
             if f in traj and f not in out:
                 out[f] = traj[f]
+        if debug.enabled():
+            # the reference's prt_maxmin/range_check debug surface
+            # (fv_diagnostics_nlm.F90:79-81), FV3LM_DEBUG=1|raise
+            debug.check_state({k: out[k] for k in self.prog_3d},
+                              label="step_nl.")
         return out
 
     def _physics_nl(self, out, traj, turb_step):
@@ -282,9 +294,11 @@ class LinearModel:
             return hit[1]
         stepper = self._staged()
         prog = {k: traj[k] for k in self.prog_3d}
-        with scope("ckpts.forward"):
+        with scope("ckpts.forward"), timing.timing("ckpts.forward",
+                                                   lambda: True):
             out, cks = stepper.forward(prog, traj["phis"])
-        with scope("ckpts.record"):
+        with scope("ckpts.record"), timing.timing("ckpts.record",
+                                                  lambda: True):
             tapes = stepper.record(cks)
         with torch.no_grad():
             _, mpack, ltraj = self._physics_nl(out, traj, False)
@@ -353,13 +367,15 @@ class LinearModel:
         prog = {k: traj[k] for k in self.prog_3d}
         p = {k: pert[k].to(self.dtype) for k in self.prog_3d}
         cks, tapes, mpack, ltraj = self._ckpts(traj)
-        with scope("step_tl"):
+        with scope("step_tl"), timing.timing("step_tl.dyn", lambda: p):
             p = self._staged().tl(prog, traj["phis"], p, cks, tapes)
         if self._moist is not None:
-            with scope("step_tl.moist"):
+            with scope("step_tl.moist"), timing.timing("step_tl.moist",
+                                                       lambda: p):
                 p = self._moist.apply_tl(*mpack, p)
         if self._turb is not None:
-            with scope("step_tl.turb"):
+            with scope("step_tl.turb"), timing.timing("step_tl.turb",
+                                                      lambda: p):
                 p = self._phys_apply(ltraj, p)
         return p
 
@@ -372,22 +388,49 @@ class LinearModel:
         pb = {k: pert_ad[k].to(self.dtype) for k in self.prog_3d}
         cks, tapes, mpack, ltraj = self._ckpts(traj)
         if self._turb is not None:
-            with scope("step_ad.turb"):
+            with scope("step_ad.turb"), timing.timing("step_ad.turb",
+                                                      lambda: pb):
                 pb = self._turb_apply_transpose(ltraj, pb)
         if self._moist is not None:
-            with scope("step_ad.moist"):
+            with scope("step_ad.moist"), timing.timing("step_ad.moist",
+                                                       lambda: pb):
                 pb = self._moist.apply_ad(*mpack, pb)
-        with scope("step_ad"):
+        with scope("step_ad"), timing.timing("step_ad.dyn", lambda: True):
             return self._staged().ad(prog, traj["phis"], pb, cks, tapes)
 
+    # -- the 4D-Var window ----------------------------------------------------
+    #
+    # The reference leaves the nt-step window loop to FV3-JEDI: per outer
+    # iteration the host propagates and stores the trajectory, then each
+    # inner iteration runs the TL forward over the window and the AD
+    # backward (fv3jedi_lm_mod.F90:105-219).  With cfg.saveltraj each
+    # step's linearization (checkpoints and tapes) stays cached across
+    # calls (the tapenade_iter checkpointing cache, tapenade_iter.F90:
+    # 118-199).
+
     def run_nl(self, traj0: dict) -> list:
-        """Propagate the window: returns [x_0, x_1, ..., x_nt]."""
+        """Propagate the window: returns [x_0, x_1, ..., x_nt]; trajs[n] is
+        the linearization state of window step n."""
         trajs = [traj0]
         tr = traj0
         for _ in range(self.cfg.nt):
             tr = self.step_nl(tr)
             trajs.append(tr)
         return trajs
+
+    def run_tl(self, trajs: list, pert: dict) -> dict:
+        """M(x_{nt-1}) ... M(x_0) applied to `pert`."""
+        p = pert
+        for n in range(self.cfg.nt):
+            p = self.step_tl(trajs[n], p)
+        return p
+
+    def run_ad(self, trajs: list, pert_ad: dict) -> dict:
+        """The transpose of run_tl: the per-step adjoints in reverse."""
+        pb = pert_ad
+        for n in reversed(range(self.cfg.nt)):
+            pb = self.step_ad(trajs[n], pb)
+        return pb
 
 
 def traj_from_numpy(lm: LinearModel, d: dict) -> dict:

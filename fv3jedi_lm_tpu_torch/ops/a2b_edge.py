@@ -1,9 +1,10 @@
-"""A-grid (cell mean) to B-grid (corner) interpolation, order 4.
+"""A-grid (cell mean) to B-grid (corner) interpolation, orders 4 and 2.
 
-Counterpart of fv3jedi_lm_tpu/ops/a2b_edge.py `a2b_ord4`
-(model/a2b_edge_nlm.F90: quasi-4th-order interpolation with one-sided cubic
-edge treatment and 3-way great-circle corner extrapolation).  `a2b_ord2`
-(d_ext and omega only) comes with those options.
+Counterpart of fv3jedi_lm_tpu/ops/a2b_edge.py (model/a2b_edge_nlm.F90):
+`a2b_ord4`, quasi-4th-order interpolation with one-sided cubic edge
+treatment and 3-way great-circle corner extrapolation; `a2b_ord2`, the
+4-cell average with 3-cell corner means and edge-factor blends (d_ext and
+omega).
 
 qin: (..., 6, jc, jc) padded, halo-filled.  Returns a B-grid tensor
 (..., 6, jb, jb); values valid on the compute corners [ng : ng+n+1]^2.
@@ -143,4 +144,51 @@ def a2b_ord4(qin, grid):
                            + C2 * (qout[..., :, ee] + qyy[..., :, ee - 2]))
 
     qout[..., inn, inn] = 0.5 * (qxx[..., inn, inn] + qyy[..., inn, inn])
+    return qout
+
+
+def a2b_ord2(qin, grid):
+    """Second-order A-to-B interpolation (a2b_edge_nlm.F90 a2b_ord2)."""
+    ic = qin.shape[-1]
+    n = ic - 2 * NG
+    jb = ic + 1
+    ew = NG
+    ee = NG + n
+    npx = n + 1
+
+    def p(i):
+        return i - 1 + NG
+
+    qout = qin.new_zeros(qin.shape[:-2] + (jb, jb))
+    # interior 4-cell average
+    qout[..., 1:ic, 1:ic] = 0.25 * (
+        qin[..., 0:ic - 1, 0:ic - 1] + qin[..., 0:ic - 1, 1:ic]
+        + qin[..., 1:ic, 0:ic - 1] + qin[..., 1:ic, 1:ic])
+    # corner 3-cell means
+    qout[..., ew, ew] = R3 * (qin[..., p(1), p(1)] + qin[..., p(0), p(1)]
+                              + qin[..., p(1), p(0)])
+    qout[..., ew, ee] = R3 * (qin[..., p(1), p(npx - 1)]
+                              + qin[..., p(0), p(npx - 1)]
+                              + qin[..., p(1), p(npx)])
+    qout[..., ee, ee] = R3 * (qin[..., p(npx - 1), p(npx - 1)]
+                              + qin[..., p(npx - 1), p(npx)]
+                              + qin[..., p(npx), p(npx - 1)])
+    qout[..., ee, ew] = R3 * (qin[..., p(npx - 1), p(1)]
+                              + qin[..., p(npx - 1), p(0)]
+                              + qin[..., p(npx), p(1)])
+    # edges with the edge factors
+    inn = slice(NG + 1, NG + n)
+    lo = slice(NG, NG + n - 1)
+
+    def blend(f, q2):
+        return f[:, inn] * q2[..., lo] + (1.0 - f[:, inn]) * q2[..., inn]
+
+    qout[..., inn, ew] = blend(grid["edge_w"],
+                               0.5 * (qin[..., :, ew - 1] + qin[..., :, ew]))
+    qout[..., inn, ee] = blend(grid["edge_e"],
+                               0.5 * (qin[..., :, ee - 1] + qin[..., :, ee]))
+    qout[..., ew, inn] = blend(grid["edge_s"],
+                               0.5 * (qin[..., ew - 1, :] + qin[..., ew, :]))
+    qout[..., ee, inn] = blend(grid["edge_n"],
+                               0.5 * (qin[..., ee - 1, :] + qin[..., ee, :]))
     return qout

@@ -3,8 +3,8 @@
 Counterpart of fv3jedi_lm_tpu/ops/d_sw.py (model/sw_core_nlm.F90: `d_sw`
 :492-1544, `xtp_u` :1970, `ytp_v` :2312): hydrostatic and
 nonhydrostatic, the trajectory schemes hord 8/9 and the perturbation
-schemes hord 1/2 (also as a per-level band, see ppm.xppm), with vorticity
-damping; d_con heating raises.
+schemes (also as a per-level band, see ppm.xppm), with vorticity
+damping and the d_con damping heat.
 
 Shapes (n cells/side, jc = n+2ng, jb = jc+1; leading dims broadcast):
   u, vt, divg_u : (..., 6, jb, jc)   rows = B lines, cols = cells
@@ -29,6 +29,7 @@ from .sw_core import F2P, SL, del6_vt_flux
 from .transport import fv_tp_2d, mask_band
 
 R3 = 1.0 / 3.0
+NEAR_ZERO = 1.0e-9  # sw_core_nlm.F90:37
 S11 = 11.0 / 14.0
 S14 = 4.0 / 7.0
 S15 = 3.0 / 14.0
@@ -81,9 +82,9 @@ def _zero_ends(x):
     return out
 
 
-def _flux_low(q, cb, dxm, npx, A, qL, qR, rdxL, rdxR):
-    """The unlimited scheme (iord 2) with its face-edge fixes
-    (sw_core_nlm.F90 xtp_u iord < 8)."""
+def _flux_low(q, cb, iord, dxm, npx, A, qL, qR, rdxL, rdxR):
+    """The schemes iord 2-7 with their face-edge fixes (sw_core_nlm.F90
+    xtp_u iord < 8)."""
     ic = A.size(q)
     n = ic - 2 * NG
     p = F2P
@@ -124,28 +125,64 @@ def _flux_low(q, cb, dxm, npx, A, qL, qR, rdxL, rdxR):
                            (iN, br_iN), (iN + 1, _zero_ends(brN1)),
                            (iN + 2, _zero_ends(brN2))], A)
     b0 = bl + br
+    blL = A.rng(bl, b0s - 1, b0s + n)
+    brL = A.rng(br, b0s - 1, b0s + n)
+    b0L = A.rng(b0, b0s - 1, b0s + n)
+    blR = A.rng(bl, b0s, b0s + n + 1)
+    brR = A.rng(br, b0s, b0s + n + 1)
+    b0R = A.rng(b0, b0s, b0s + n + 1)
     cflp = cb * rdxL
     cfln = cb * rdxR
-    return fwhere(
-        cb > 0.0,
-        qL + (1.0 - cflp) * (A.rng(br, b0s - 1, b0s + n)
-                             - cflp * A.rng(b0, b0s - 1, b0s + n)),
-        qR + (1.0 + cfln) * (A.rng(bl, b0s, b0s + n + 1)
-                             + cfln * A.rng(b0, b0s, b0s + n + 1)),
-    )
+    if iord == 2:
+        return fwhere(cb > 0.0,
+                      qL + (1.0 - cflp) * (brL - cflp * b0L),
+                      qR + (1.0 + cfln) * (blR + cfln * b0R))
+    x0 = torch.abs(b0)
+    x1 = torch.abs(bl - br)
+    if iord in (3, 4):
+        smt5 = fbool(x0 < x1)
+        smt6 = fbool(3.0 * x0 < x1)
+        s5L = A.rng(smt5, b0s - 1, b0s + n)
+        s6L = A.rng(smt6, b0s - 1, b0s + n)
+        s5R = A.rng(smt5, b0s, b0s + n + 1)
+        s6R = A.rng(smt6, b0s, b0s + n + 1)
+        if iord == 3:
+            fx0p = torch.where(
+                s6L | s5R, brL - cflp * b0L,
+                torch.where(s5L, fsign_mul(brL, fmin(fabs(blL), fabs(brL))),
+                            0.0))
+            fx0n = torch.where(
+                s6R | s5L, blR + cfln * b0R,
+                torch.where(s5R, fsign_mul(blR, fmin(fabs(blR), fabs(brR))),
+                            0.0))
+            return fwhere(cb > 0.0, qL + (1.0 - cflp) * fx0p,
+                          qR + (1.0 + cfln) * fx0n)
+        fx0p = torch.where(s6L | s5R, (1.0 - cflp) * (brL - cflp * b0L), 0.0)
+        fx0n = torch.where(s6R | s5L, (1.0 + cfln) * (blR + cfln * b0R), 0.0)
+        return fwhere(cb > 0.0, qL + fx0p, qR + fx0n)
+    # iord 5, 6, 7
+    if iord == 5:
+        smt5 = fbool(bl * br < 0.0)
+    else:
+        smt5 = fbool(torch.abs(3.0 * b0) < x1)
+    s5L = A.rng(smt5, b0s - 1, b0s + n)
+    s5R = A.rng(smt5, b0s, b0s + n + 1)
+    cbpos = fbool(cb > 0.0)
+    fx0 = torch.where(cbpos, (1.0 - cflp) * (brL - cflp * b0L),
+                      (1.0 + cfln) * (blR + cfln * b0R))
+    base = torch.where(cbpos, qL, qR)
+    return base + torch.where(s5L | s5R, fx0, 0.0)
 
 
 def _xtp_flux(q, cb, iord, dxm, rdxm, npx, A):
     """Advective flux of a D-grid wind component along its own line, iord
-    1, 2, 8 and 9 (sw_core_nlm.F90:1970-2306).
+    1-13 (sw_core_nlm.F90:1970-2306).
 
     Works along axis `A.ax` (-1 for xtp_u rows, -2 for ytp_v columns).
     q: cells, width jc along A.ax; cb: courant at B indices 1..npx;
     dxm/rdxm metric aligned with q.  Returns the flux, width n+1."""
-    if iord not in (1, 2, 8, 9):
-        raise NotImplementedError(
-            f"xtp_u/ytp_v iord={iord!r}: only 1, 2, 8 and 9 are ported "
-            "(ROADMAP Queue 1, remaining dynamics options)")
+    if not 1 <= iord <= 13:
+        raise ValueError(f"xtp_u/ytp_v iord={iord!r}: the schemes are 1-13")
     ic = A.size(q)
     n = ic - 2 * NG
     p = F2P
@@ -156,8 +193,8 @@ def _xtp_flux(q, cb, iord, dxm, rdxm, npx, A):
     rdxR = A.rng(rdxm, b0s, b0s + n + 1)
     if iord == 1:
         return fwhere(cb > 0.0, qL, qR)
-    if iord == 2:
-        return _flux_low(q, cb, dxm, npx, A, qL, qR, rdxL, rdxR)
+    if iord < 8:
+        return _flux_low(q, cb, iord, dxm, npx, A, qL, qR, rdxL, rdxR)
 
     qm1 = A.rng(q, 0, ic - 2)
     qp1 = A.rng(q, 2, ic)
@@ -184,18 +221,29 @@ def _xtp_flux(q, cb, iord, dxm, rdxm, npx, A):
         xt2 = 2.0 * dm
         bl = -fsign_mul(xt2, fmin(fabs(xt2), fabs(bl)))
         br = fsign_mul(xt2, fmin(fabs(xt2), fabs(br)))
-    else:  # 9
+    elif iord in (9, 10):
         dqm1 = torch.roll(dq, 1, dims=A.ax)
         dqm2 = torch.roll(dq, 2, dims=A.ax)
         dqp1 = torch.roll(dq, -1, dims=A.ax)
         pmp_1 = -2.0 * dq
         lac_1 = pmp_1 + 1.5 * dqp1
-        bl = fmin(fmax(0.0, fmax(pmp_1, lac_1)),
-                  fmax(bl, fmin(0.0, fmin(pmp_1, lac_1))))
+        bl_l = fmin(fmax(0.0, fmax(pmp_1, lac_1)),
+                    fmax(bl, fmin(0.0, fmin(pmp_1, lac_1))))
         pmp_2 = 2.0 * dqm1
         lac_2 = pmp_2 - 1.5 * dqm2
-        br = fmin(fmax(0.0, fmax(pmp_2, lac_2)),
-                  fmax(br, fmin(0.0, fmin(pmp_2, lac_2))))
+        br_l = fmin(fmax(0.0, fmax(pmp_2, lac_2)),
+                    fmax(br, fmin(0.0, fmin(pmp_2, lac_2))))
+        if iord == 9:
+            bl, br = bl_l, br_l
+        else:
+            dmm1 = torch.roll(dm, 1, dims=A.ax)
+            dmp1 = torch.roll(dm, -1, dims=A.ax)
+            flat = (torch.abs(dm) < NEAR_ZERO) & (
+                torch.abs(dmm1) + torch.abs(dmp1) < NEAR_ZERO)
+            noisy = torch.abs(3.0 * (bl + br)) > torch.abs(bl - br)
+            bl = fwhere(flat, 0.0, fwhere(noisy, bl_l, bl))
+            br = fwhere(flat, 0.0, fwhere(noisy, br_l, br))
+    # iord 11-13: the unlimited bl/br as computed
 
     # west edge (sw_core_nlm.F90:2237-2261)
     i1 = p(1)
@@ -432,9 +480,6 @@ def d_sw(
     heat source (sw_core_nlm.F90:492-1544).  `kcoef` is the per-level
     sponge-band damping configuration of dyn_core._kcoef (or _kcoef_pert).
     Hydrostatic, w passes through untouched."""
-    if kcoef["d_con"] > 1.0e-5:
-        raise NotImplementedError(
-            "d_sw d_con heating: ROADMAP Queue 1, remaining dynamics options")
     nord = kcoef["nord"]
     nord_v = kcoef["nord_v"]
     nord_t = kcoef["nord_t"]
@@ -447,6 +492,8 @@ def d_sw(
     damp_v_k = kcoef["damp_v"]
     damp_w_k = kcoef["damp_w"]
     damp_t_k = kcoef["damp_t"]
+    d_con = kcoef["d_con"]
+    dcon_k = kcoef["dcon"]
     nord0_k = kcoef["nord0"]
     nordv0_k = kcoef["nordv0"]
     nordt0_k = kcoef["nordt0"]
@@ -480,6 +527,8 @@ def d_sw(
     divg_v = grid["divg_v"]
     da_min_c = grid["da_min_c"]
     da_min = grid["da_min"]
+    cosa_s = grid["cosa_s"]
+    rsin2 = grid["rsin2"]
 
     ut, vt = _contravariant_winds(uc, vc, grid, dt, npx)
 
@@ -794,12 +843,38 @@ def d_sw(
            + (ke[..., p(1):p(n) + 1, bs] - ke[..., p(2):p(npy) + 1, bs])
            - fxv)
     if do_vort_damp:
-        # vorticity damping: diffusive fluxes added to the momentum
-        # (:1490-1494, 1533-1543)
+        # vorticity damping (:1490-1494)
         _, fx2d, fy2d = _del6_vt_flux_masked(
             nord_v,
             (damp_v_k * da_min_c, (damp_v_k * da_min_c) ** (nord_v + 1)),
             nordv0_k, wk, grid, topo)
+    if d_con > 1.0e-5:
+        # heating due to the damping (:1436-1448, 1496-1530)
+        ub_h = vort_b[..., :, 0:n] - vort_b[..., :, 1:npx]
+        vb_h = vort_b[..., 0:n, :] - vort_b[..., 1:npy, :]
+        if do_vort_damp:
+            ub_h = ub_h + fy2d[..., bs, cs]
+            vb_h = vb_h - fx2d[..., cs, bs]
+        ub_h2 = ub_h * rdx[..., bs, cs]
+        fy_h = u_c * rdx[..., bs, cs]
+        gy_h = fy_h * ub_h2
+        vb_h2 = vb_h * rdy[..., cs, bs]
+        fx_h = v_c * rdy[..., cs, bs]
+        gx_h = fx_h * vb_h2
+        dampc2 = 0.25 * dcon_k
+        u2 = fy_h[..., 0:n, :] + fy_h[..., 1:n + 1, :]
+        du2 = ub_h2[..., 0:n, :] + ub_h2[..., 1:n + 1, :]
+        v2 = fx_h[..., :, 0:n] + fx_h[..., :, 1:n + 1]
+        dv2 = vb_h2[..., :, 0:n] + vb_h2[..., :, 1:n + 1]
+        heat_source = delp_new[..., cs, cs] * (
+            heat_source - dampc2 * rsin2[..., cs, cs] * (
+                (ub_h2[..., 0:n, :] ** 2 + ub_h2[..., 1:n + 1, :] ** 2
+                 + vb_h2[..., :, 0:n] ** 2 + vb_h2[..., :, 1:n + 1] ** 2)
+                + 2.0 * (gy_h[..., 0:n, :] + gy_h[..., 1:n + 1, :]
+                         + gx_h[..., :, 0:n] + gx_h[..., :, 1:n + 1])
+                - cosa_s[..., cs, cs] * (u2 * dv2 + v2 * du2 + du2 * dv2)))
+    if do_vort_damp:
+        # add the diffusive fluxes to the momentum (:1533-1543)
         u_c = u_c + fy2d[..., bs, cs]
         v_c = v_c + (-fx2d[..., cs, bs])
     u_new = u.clone()

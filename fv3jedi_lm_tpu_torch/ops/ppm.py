@@ -1,10 +1,17 @@
-"""PPM flux operators (xppm / yppm) for FV transport, iord 1, 2, 8 and 9.
+"""PPM flux operators (xppm / yppm) for FV transport, iord 1-13.
 
-Counterpart of fv3jedi_lm_tpu/ops/ppm.py (model/tp_core_nlm.F90:291-951).
-The trajectory uses hord 9 for the dynamics and hord_tr 8 for the tracers;
-the linearization's perturbation scheme uses hord 2 (unlimited PPM) and
-hord 1 (first-order upwind) in the perturbation sponge levels (config.py
-defaults).  The other schemes raise.
+Counterpart of fv3jedi_lm_tpu/ops/ppm.py (model/tp_core_nlm.F90:291-951):
+piecewise-parabolic reconstruction with the scheme family selected by
+`iord`:
+
+  1  first-order upwind
+  2  unlimited ("perfectly linear") PPM, the linearization's pert scheme
+  3,4,5,6,7  selectively-limited fast schemes
+  8  Lin PPM with fast monotone constraint
+  9,13  positive-definite constraints
+  10 Lin's modification of the Huynh constraint
+  11 van-Leer-type via PPM
+  12 same family (10's relaxative variant, tp_core_nlm.F90:505)
 
 The operator works along a chosen axis (`ax` = -1 for xppm, -2 for yppm)
 with no transposes.  q is a padded center tensor of width IC = n + 2*ng
@@ -17,7 +24,7 @@ from __future__ import annotations
 import torch
 
 from .. import NG
-from ..core.freeze import fabs, fmax, fmin, fsign_mul, fwhere
+from ..core.freeze import fabs, fbool, fmax, fmin, fsign_mul, fwhere
 
 # reconstruction coefficients (tp_core_nlm.F90:40-70)
 P1 = 7.0 / 12.0
@@ -30,6 +37,7 @@ S14 = 4.0 / 7.0
 S15 = 3.0 / 14.0
 R3 = 1.0 / 3.0
 NEAR_ZERO = 1.0e-25
+PPM_FAC = 1.5
 
 
 class _Ax:
@@ -119,17 +127,22 @@ def pert_ppm(a0, al, ar, iv):
     return fwhere(opp, al_n, 0.0), fwhere(opp, ar_n, 0.0)
 
 
-def _bl_br_low(q, dxa, A: _Ax):
-    """bl/br of the unlimited scheme (iord 2) with the cubed-sphere face-edge
-    interface overrides (tp_core_nlm.F90:341-369); cell-aligned."""
+def _bl_br_low(q, dxa, iord, A: _Ax):
+    """bl/br for iord < 8 with the cubed-sphere face-edge interface
+    overrides (tp_core_nlm.F90:341-369); cell-aligned."""
     ic = A.size(q)
     n = ic - 2 * NG
     z = A.zeros_like_w(q, 2)
     al = A.cat([z, P1 * (A.rng(q, 1, ic - 2) + A.rng(q, 2, ic - 1))
                 + P2 * (A.rng(q, 0, ic - 3) + A.rng(q, 3, ic)), z])
+    if iord == 7:
+        half = 0.5 * (A.rng(q, 0, ic - 1) + A.rng(q, 1, ic))
+        alv = A.rng(al, 1, ic)
+        al = A.cat([A.rng(al, 0, 1), fwhere(alv < 0.0, half, alv),
+                    A.rng(al, ic, ic + 1)])
     e_w = NG          # west face edge index
     e_e = NG + n      # east face edge
-    al = set_cols(al, [
+    edge_vals = [
         (e_w - 1, C1 * A.get(q, e_w - 3) + C2 * A.get(q, e_w - 2)
          + C3 * A.get(q, e_w - 1)),
         (e_w, _edge_interp(q, dxa, e_w, A)),
@@ -140,12 +153,15 @@ def _bl_br_low(q, dxa, A: _Ax):
         (e_e, _edge_interp(q, dxa, e_e, A)),
         (e_e + 1, C3 * A.get(q, e_e) + C2 * A.get(q, e_e + 1)
          + C1 * A.get(q, e_e + 2)),
-    ], A)
+    ]
+    if iord == 7:
+        edge_vals = [(e, fmax(0.0, v)) for e, v in edge_vals]
+    al = set_cols(al, edge_vals, A)
     return A.rng(al, 0, ic) - q, A.rng(al, 1, ic + 1) - q
 
 
 def _bl_br_high(q, dxa, iord, A: _Ax):
-    """bl/br for iord 8/9 (monotone family) with edge fixes; cell-aligned."""
+    """bl/br for iord >= 8 (monotone family) with edge fixes; cell-aligned."""
     ic = A.size(q)
     n = ic - 2 * NG
 
@@ -171,11 +187,11 @@ def _bl_br_high(q, dxa, iord, A: _Ax):
     bl = A.rng(al, 0, ic) - q
     br = A.rng(al, 1, ic + 1) - q
 
-    if iord == 8:
-        xt2 = 2.0 * dm
+    if iord in (8, 11):
+        xt2 = (2.0 if iord == 8 else PPM_FAC) * dm
         bl = -fsign_mul(xt2, fmin(fabs(xt2), fabs(bl)))
         br = fsign_mul(xt2, fmin(fabs(xt2), fabs(br)))
-    else:  # 9
+    else:  # 9, 10, 12, 13
         dq = A.cat([2.0 * (A.rng(q, 1, ic) - A.rng(q, 0, ic - 1)), z1])
         dqm1 = torch.roll(dq, 1, dims=A.ax)
         dqm2 = torch.roll(dq, 2, dims=A.ax)
@@ -194,7 +210,7 @@ def _bl_br_high(q, dxa, iord, A: _Ax):
                     fmax(bl, fmin(0.0, fmin(pmp_1, lac_1))))
         bl = fwhere(flat, 0.0, fwhere(noisy, bl_l, bl))
         br = fwhere(flat, 0.0, fwhere(noisy, br_l, br))
-        # additional positive-definite constraint
+    if iord in (9, 13):  # additional positive-definite constraint
         bl, br = pert_ppm(q, bl, br, 0)
 
     # ---- cubed-sphere edge fixes (tp_core_nlm.F90:531-569) ----
@@ -273,10 +289,8 @@ def xppm(q, c, iord, dxa, ax: int = -1):
         main, sponge, ksp = iord
         return torch.cat([xppm(q[:ksp], c[:ksp], sponge, dxa, ax),
                           xppm(q[ksp:], c[ksp:], main, dxa, ax)], dim=0)
-    if iord not in (1, 2, 8, 9):
-        raise NotImplementedError(
-            f"xppm iord={iord!r}: only 1, 2, 8 and 9 are ported (ROADMAP "
-            "Queue 1, remaining dynamics options)")
+    if not 1 <= iord <= 13:
+        raise ValueError(f"xppm iord={iord!r}: the schemes are 1-13")
     A = _AXX if ax == -1 else _AXY
     n = A.size(q) - 2 * NG
     if A.size(c) != n + 1:
@@ -284,11 +298,65 @@ def xppm(q, c, iord, dxa, ax: int = -1):
     e0, e1 = NG, NG + n + 1
     if iord == 1:
         return fwhere(c > 0.0, A.rng(q, e0 - 1, e1 - 1), A.rng(q, e0, e1))
-    if iord == 2:
-        bl, br = _bl_br_low(q, dxa, A)
-    else:
+    if iord >= 8:
         bl, br = _bl_br_high(q, dxa, iord, A)
-    return _flux_from_blbr(q, c, bl, br, e0, e1, A)
+        return _flux_from_blbr(q, c, bl, br, e0, e1, A)
+    bl, br = _bl_br_low(q, dxa, iord, A)
+    if iord in (2, 7):
+        return _flux_from_blbr(q, c, bl, br, e0, e1, A)
+    return _flux_selective(q, c, bl, br, iord, e0, e1, A)
+
+
+def _flux_selective(q, c, bl, br, iord, e0, e1, A: _Ax):
+    """The selectively-limited fluxes of iord 3-6 (tp_core_nlm.F90:
+    383-455); the smoothness indicators are frozen decisions."""
+    b0 = bl + br
+    x0 = torch.abs(b0)
+    x1 = torch.abs(bl - br)
+    if iord in (3, 4):
+        smt5 = x0 < x1
+        smt6 = 3.0 * x0 < x1
+    elif iord == 5:
+        smt5 = bl * br < 0.0
+    else:  # 6
+        smt5 = 3.0 * x0 < x1
+    smt5 = fbool(smt5)
+    if iord in (3, 4):
+        smt6 = fbool(smt6)
+    qL = A.rng(q, e0 - 1, e1 - 1)
+    qR = A.rng(q, e0, e1)
+    blL = A.rng(bl, e0 - 1, e1 - 1)
+    brL = A.rng(br, e0 - 1, e1 - 1)
+    blR = A.rng(bl, e0, e1)
+    brR = A.rng(br, e0, e1)
+    b0L = A.rng(b0, e0 - 1, e1 - 1)
+    b0R = A.rng(b0, e0, e1)
+    smt5L = A.rng(smt5, e0 - 1, e1 - 1)
+    smt5R = A.rng(smt5, e0, e1)
+    if iord == 3:
+        smt6L = A.rng(smt6, e0 - 1, e1 - 1)
+        smt6R = A.rng(smt6, e0, e1)
+        fx1p = torch.where(
+            smt6L | smt5R, brL - c * b0L,
+            torch.where(smt5L, fsign_mul(brL, fmin(fabs(blL), fabs(brL))),
+                        0.0))
+        fx1n = torch.where(
+            smt6R | smt5L, blR + c * b0R,
+            torch.where(smt5R, fsign_mul(blR, fmin(fabs(blR), fabs(brR))),
+                        0.0))
+        return fwhere(c > 0.0, qL + (1.0 - c) * fx1p, qR + (1.0 + c) * fx1n)
+    if iord == 4:
+        smt6L = A.rng(smt6, e0 - 1, e1 - 1)
+        smt6R = A.rng(smt6, e0, e1)
+        fx1p = torch.where(smt6L | smt5R, (1.0 - c) * (brL - c * b0L), 0.0)
+        fx1n = torch.where(smt6R | smt5L, (1.0 + c) * (blR + c * b0R), 0.0)
+        return fwhere(c > 0.0, qL + fx1p, qR + fx1n)
+    # iord 5, 6
+    cpos = fbool(c > 0.0)
+    fx1 = torch.where(cpos, (1.0 - c) * (brL - c * b0L),
+                      (1.0 + c) * (blR + c * b0R))
+    base = torch.where(cpos, qL, qR)
+    return base + torch.where(smt5L | smt5R, fx1, 0.0)
 
 
 def yppm(q, c, jord, dya):

@@ -31,25 +31,34 @@ def fv_tp_2d(q, crx, cry, hord, xfx, yfx, grid, topo, ra_x, ra_y,
     scalar `nord`/`damp_c` or by the per-level
     `damp_k=(damp4_0_k, damp4_n_k, nord_n, nord0_mask)` (the sponge bands
     of dyn_core_nlm.F90:536-630).  `hord` may be a per-level blend
-    `(main, sponge, ksp)` (see ppm.xppm)."""
+    `(main, sponge, ksp)` (see ppm.xppm).  The inner (cross) passes of
+    hord 10 use scheme 8 (the reference's ord_in)."""
     n = q.shape[-1] - 2 * NG
+    if isinstance(hord, tuple):
+        hm, hs, ksp = hord
+        ord_in = (8 if hm == 10 else hm, 8 if hs == 10 else hs, ksp)
+    else:
+        ord_in = 8 if hord == 10 else hord
+    ord_ou = hord
     dxa = grid["dxa"]
     dya = grid["dya"]
     area = grid["area"]
 
     q_y = halo.copy_corners(q, topo, 2)
-    fy2 = ppm.yppm(q_y, cry, hord, dya)                      # (..., n+1, jc)
+    fy2 = ppm.yppm(q_y, cry, ord_in, dya)                    # (..., n+1, jc)
     fyy = yfx * fy2
     q_i = (q[..., NG:NG + n, :] * area[..., NG:NG + n, :]
            + fyy[..., :-1, :] - fyy[..., 1:, :]) / ra_y
-    fx = ppm.xppm(q_i, crx[..., NG:NG + n, :], hord, dxa[..., NG:NG + n, :])
+    fx = ppm.xppm(q_i, crx[..., NG:NG + n, :], ord_ou,
+                  dxa[..., NG:NG + n, :])
 
     q_x = halo.copy_corners(q, topo, 1)
-    fx2 = ppm.xppm(q_x, crx, hord, dxa)                      # (..., jc, n+1)
+    fx2 = ppm.xppm(q_x, crx, ord_in, dxa)                    # (..., jc, n+1)
     fx1 = xfx * fx2
     q_j = (q[..., :, NG:NG + n] * area[..., :, NG:NG + n]
            + fx1[..., :, :-1] - fx1[..., :, 1:]) / ra_x
-    fy = ppm.yppm(q_j, cry[..., :, NG:NG + n], hord, dya[..., :, NG:NG + n])
+    fy = ppm.yppm(q_j, cry[..., :, NG:NG + n], ord_ou,
+                  dya[..., :, NG:NG + n])
 
     if mfx is not None and mfy is not None:
         fx = 0.5 * (fx + fx2[..., NG:NG + n, :]) * mfx

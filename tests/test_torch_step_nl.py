@@ -115,16 +115,25 @@ def test_rest_state_stays_at_rest():
 
 
 def test_unported_options_raise():
-    """What the port does not run yet raises, naming its ROADMAP item: a
-    dynamics option (beta) outside the slices.  The physics is ported and
-    builds."""
+    """Every dynamics option of DynConfig runs (beta, once refused, steps
+    to finite values) and the physics builds; what no configuration can
+    ask for still raises: a PPM scheme outside iord 1-13, a remap mode
+    outside iv -2..2."""
     phys = LinearModel.create(CFG.replace(do_phy_trb=True, do_phy_mst=1),
                               device="cpu")
     assert phys.tracers[-1] == "cfcn"
     beta = LinearModel.create(CFG.replace(dyn=CFG.dyn.replace(beta=0.5)),
                               device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        beta.step_nl(beta.rest_traj())
+    out = beta.step_nl(beta.rest_traj())
+    assert all(bool(torch.isfinite(out[k]).all()) for k in beta.prog_3d)
+    from fv3jedi_lm_tpu_torch.ops import fv_mapz, ppm
+    q = torch.zeros(2, 6, 18, 18, dtype=torch.float64)
+    with pytest.raises(ValueError, match="1-13"):
+        ppm.xppm(q, torch.zeros(2, 6, 18, 13, dtype=torch.float64), 14,
+                 beta.grid["dxa"])
+    a = torch.ones(5, 3, dtype=torch.float64)
+    with pytest.raises(ValueError, match="iv=3"):
+        fv_mapz.cs_profile(a[0], a, a, 3, 8)
 
 
 _NO_JAX = r"""
