@@ -5,11 +5,12 @@
 Builds the SIM1 CUDA kernel from fv3jedi_lm_tpu_torch/csrc/sim1.cu,
 checks it against its plain PyTorch version on the card at the shapes of
 tests/test_torch_cuda.py and times it (with its copy-only and solve-only
-parts, and the tile sizes around its plan), checks the port on the GPU
-against the port on the CPU at a small size, runs the nonhydrostatic
-trajectory step (LinearModel.run_nl) at c96L72 float32, checks that every
-SIM1 call of that run went through the kernel, and profiles one more step
-to find the kernel's launches in the trace.  Then the main path, the
+parts, and the tile sizes around its plan), checks the bit-packed branch
+tapes on the card against the CPU's, checks the port on the GPU against
+the port on the CPU at a small size, runs the nonhydrostatic trajectory
+step (LinearModel.run_nl) at c96L72 float32, checks that every SIM1 call
+of that run went through the kernel, and profiles one more step to find
+the kernel's launches in the trace.  Then the main path, the
 tangent-linear and adjoint pair (LinearModel.step_tl + step_ad): on the
 GPU against the CPU at c12L10 float64, hydrostatic and nonhydrostatic,
 with the dot-product identity and SIM1's launches by mode; timed at
@@ -25,16 +26,18 @@ the GPU against the CPU at c12L10 float64 (step_nl, step_tl, step_ad,
 the identity; the nonhydrostatic beta case launches SIM1), and the
 4D-Var window (run_nl, run_tl, run_ad) at c96L72 float32 with the
 options FV3 configurations commonly turn on, with and without the
-saveltraj cache, its bytes per cached step and the host timers' table.
-Each phase raises on failure.  The last two lines of standard
-output are a JSON line describing the kernels and a JSON status line.
-Without a CUDA device the script exits non-zero and prints no result.  It
-imports neither JAX nor the JAX package.
+saveltraj cache and the host timers' table.  Each c96L72 phase prints
+the bytes of its cached trajectories (checkpoints, bool tapes, integer
+tapes) and, once its model is dropped, checks that the device memory
+came back (no cyclic collection is run).  Each phase raises on failure.
+The last two lines of standard output are a JSON line describing the
+kernels and a JSON status line.  Without a CUDA device the script exits
+non-zero and prints no result.  It imports neither JAX nor the JAX
+package.
 """
 
 from __future__ import annotations
 
-import gc
 import json
 import subprocess
 import sys
@@ -215,6 +218,135 @@ def sim1_bound_ms(km, ncol, itemsize):
                                       else "operations")
 
 
+#: device memory a dropped model may leave allocated (the halo index and
+#: table caches, kept per device)
+MEMORY_SLACK = 64 * 2**20
+
+
+def _allocated():
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
+
+
+def memory_returned(what, before, card):
+    """Checks that torch.cuda.memory_allocated() is back within
+    MEMORY_SLACK of `before`, its value before the model of `what` was
+    made, now that the model and everything of it are dropped (no cyclic
+    collection: a model frees its device memory at `del`)."""
+    torch.cuda.synchronize()
+    now = torch.cuda.memory_allocated()
+    print(f"[memory] {what}: {now} B allocated after the model was dropped, "
+          f"{before} B before it was made ({(now - before) / 2**20:+.3f} MiB) "
+          f"({card[0]}; {card[1]})", flush=True)
+    if now > before + MEMORY_SLACK:
+        raise AssertionError(
+            f"{what}: {(now - before) / 2**20:.1f} MiB of device memory "
+            "outlived the dropped model")
+
+
+def unpacked_decisions(tape):
+    """Boolean decisions of ndim > 0 (per row) that `tape` stores
+    unpacked: 0 when every such decision is bit-packed."""
+    from fv3jedi_lm_tpu_torch.core.freeze import leaves
+
+    return sum(e.numel() for e, lead in leaves(tape)
+               if isinstance(e, torch.Tensor) and e.dtype == torch.bool
+               and e.dim() > lead)
+
+
+def print_cached(tag, lm, card):
+    """Prints the bytes of each cached trajectory of `lm`, split as
+    debug.cache_bytes splits them (checkpoints, the dynamics tapes'
+    boolean and integer decisions, the moist linearization and its tape,
+    the turbulence coefficients); fails if a boolean decision of ndim > 0
+    is stored unpacked.  Returns debug.cache_bytes(lm)."""
+    from fv3jedi_lm_tpu_torch import debug
+
+    cached = debug.cache_bytes(lm)
+    gib = lambda n: f"{n} B ({n / 2**30:.3f} GiB)"
+    for i, c in enumerate(cached):
+        tapes = c.tape_bool + c.tape_int + c.moist_bool + c.moist_int
+        msg = (f"[{tag}] cached trajectory {i}: checkpoints {gib(c.ckpts)}, "
+               f"bool tapes {gib(c.tape_bool)}, integer tapes "
+               f"{gib(c.tape_int)}")
+        if c.moist or c.turb:
+            msg += (f", moist ltraj {gib(c.moist)}, moist bool tape "
+                    f"{gib(c.moist_bool)}, moist integer tape "
+                    f"{gib(c.moist_int)}, turbulence ltraj {gib(c.turb)}")
+        print(msg + f"; total {gib(c.total)}, tapes "
+              f"{100 * tapes / max(c.total, 1):.1f} % of it "
+              f"({card[0]}; {card[1]})", flush=True)
+    for _, (_, (_, tapes, mpack, _)) in lm._traj_cache.items():
+        every = ([t for sub in tapes["sub"] for t3 in sub for t in t3]
+                 + list(tapes["post"]) + ([mpack[1]] if mpack else []))
+        raw = sum(unpacked_decisions(t) for t in every)
+        if raw:
+            raise AssertionError(f"{tag}: {raw} boolean decisions of ndim > "
+                                 "0 stored unpacked")
+    return cached
+
+
+def tape_storage(device):
+    """The tape storage of core/freeze.py on `device` against the CPU's:
+    boolean decisions of sizes that are and are not multiples of 8, an
+    fscan entry of 6 rows and qsat's table index (dqsat), recorded on
+    both.  The stored bytes must be equal, the replay on `device` must
+    give the recorded decisions, and the table index must be uint16, 2
+    bytes a value.  Returns (packed bool bytes, decisions they hold,
+    (index dtype, bytes per value))."""
+    from fv3jedi_lm_tpu_torch.core import freeze
+    from fv3jedi_lm_tpu_torch.physics.qsat import dqsat
+
+    rng = np.random.default_rng(23)
+    preds = [rng.random(shape) > 0.5
+             for shape in ((7,), (16,), (5, 9), (72, 13, 11))]
+    xs = rng.standard_normal((6, 3, 5))
+    temp = np.linspace(150.0, 330.0, 101)
+    pres = np.linspace(1.0e3, 1.0e5, 101)
+
+    def run(dev, flip):
+        as_t = lambda a: torch.as_tensor(a, device=dev)
+        got = [freeze.fbool(as_t(~p if flip else p)) for p in preds]
+        freeze.fscan(lambda c, x: (c + freeze.fmax(x, 0.0), None),
+                     as_t(np.zeros((3, 5))), as_t(-xs if flip else xs))
+        dqsat(as_t(temp), as_t(pres))
+        return got
+
+    tapes = {}
+    for dev in (device, "cpu"):
+        with freeze.recording() as tapes[dev]:
+            run(dev, False)
+    got = list(freeze.leaves(tapes[device]))
+    want = list(freeze.leaves(tapes["cpu"]))
+    if len(got) != len(want):
+        raise AssertionError(f"tapes: {len(got)} entries on {device}, "
+                             f"{len(want)} on the CPU")
+    nbool = nbits = 0
+    index = None
+    for (g, _), (w, _) in zip(got, want):
+        if isinstance(w, freeze.Packed):
+            if not (isinstance(g, freeze.Packed) and g.shape == w.shape
+                    and torch.equal(g.data.cpu(), w.data)):
+                raise AssertionError(f"tapes: packed entry {w} differs on "
+                                     f"{device}")
+            nbool += g.data.numel()
+            nbits += g.decisions
+        elif not (g.dtype == w.dtype and torch.equal(g.cpu(), w)):
+            raise AssertionError(f"tapes: {w.dtype} entry differs on {device}")
+        elif g.dtype not in (torch.bool, torch.uint8):
+            index = (g.dtype, g.element_size())
+    with freeze.replaying(tapes[device]):
+        replayed = run(device, True)
+    for r, p in zip(replayed, preds):
+        if not np.array_equal(r.cpu().numpy(), p):
+            raise AssertionError(f"tapes: a replayed decision of shape "
+                                 f"{p.shape} differs on {device}")
+    if index != (torch.uint16, 2):
+        raise AssertionError(f"tapes: qsat's table index is stored as "
+                             f"{index}, want (torch.uint16, 2)")
+    return nbool, nbits, index
+
+
 def _bump(lm, amp=3.0):
     """The smooth thermal bump of tests/test_nh_e2e.py, (npz, 6, n, n)."""
     n = lm.cfg.dyn.nx
@@ -269,21 +401,32 @@ def dot(a, b, keys):
     return sum(float((a[k].double() * b[k].double()).sum()) for k in keys)
 
 
-def tlad_devices(kw, devices=("cuda", "cpu")):
+def tlad_traj(kw):
+    """tlad_devices' trajectory at the configuration `kw`: spun up on the
+    CPU (numpy)."""
+    from fv3jedi_lm_tpu_torch.config import DynConfig, LMConfig
+    from fv3jedi_lm_tpu_torch.lm import LinearModel, traj_to_numpy
+
+    cfg = LMConfig(dyn=DynConfig(**kw), dt=450.0)
+    hyd = cfg.dyn.hydrostatic
+    cpu = LinearModel.create(cfg, device="cpu")
+    return traj_to_numpy(spun_up(cpu, 3 if hyd else 2, moist=hyd))
+
+
+def tlad_devices(kw, devices=("cuda", "cpu"), traj=None):
     """step_tl(traj, rand_pert(1)) and step_ad(traj, rand_pert(2)) at the
     c12L10 configuration `kw` (float64), from one trajectory spun up on
-    the CPU, on each device.  Returns {device: dict(tl, ad (numpy), dot
-    (the identity's relative error), fwd_launches (SIM1 kernel launches of
-    `forward`), mixed_launches (of record, TL and AD))}."""
+    the CPU (`traj`, else tlad_traj(kw)), on each device.  Returns
+    {device: dict(tl, ad (numpy), dot (the identity's relative error),
+    fwd_launches (SIM1 kernel launches of `forward`), mixed_launches (of
+    record, TL and AD))}."""
     from fv3jedi_lm_tpu_torch.config import DynConfig, LMConfig
     from fv3jedi_lm_tpu_torch.lm import (LinearModel, traj_from_numpy,
                                          traj_to_numpy)
     from fv3jedi_lm_tpu_torch.ops.cuda_sim1 import sim1_solver_cuda
 
     cfg = LMConfig(dyn=DynConfig(**kw), dt=450.0)
-    hyd = cfg.dyn.hydrostatic
-    cpu = LinearModel.create(cfg, device="cpu")
-    traj = traj_to_numpy(spun_up(cpu, 3 if hyd else 2, moist=hyd))
+    traj = tlad_traj(kw) if traj is None else traj
     out = {}
     for dev in devices:
         lm = LinearModel.create(cfg, device=dev)
@@ -312,6 +455,12 @@ def tlad_devices(kw, devices=("cuda", "cpu")):
                         dot=abs(lhs - rhs) / max(abs(lhs), 1e-300),
                         fwd_launches=fwd[0], mixed_launches=mixed)
     return out
+
+
+def tlad_cpu(kw):
+    """tlad_devices' CPU half: (its trajectory, its CPU result)."""
+    traj = tlad_traj(kw)
+    return traj, tlad_devices(kw, ("cpu",), traj)["cpu"]
 
 
 def moist_traj(tr, n, npz, rng, asarray):
@@ -400,6 +549,60 @@ def phys_devices(mode, devices=("cuda", "cpu")):
     return out
 
 
+def phys_cpu(mode):
+    """phys_devices' CPU half."""
+    return phys_devices(mode, ("cpu",))["cpu"]
+
+
+def _cpu_worker():
+    # the CPU references run at c12 and below, where one thread is about
+    # twice as fast as eight (measured on the CPU at c12L10)
+    torch.set_num_threads(1)
+
+
+class CpuReferences:
+    """The CPU halves of the small phases' comparisons (small_step_nl,
+    tlad_cpu, phys_cpu, options_cpu), computed in spawned worker
+    processes, one thread each, while the card runs the GPU halves; the
+    same code on the same numbers as in this process.  `get` waits for a
+    job's result (raising its error), `wait` for all, `close` stops the
+    workers."""
+
+    def __init__(self, workers=3):
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+
+        self._pool = ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn"),
+            initializer=_cpu_worker)
+        self._jobs = {}
+
+    def submit(self, key, fn, *args):
+        self._jobs[key] = self._pool.submit(fn, *args)
+
+    def get(self, key):
+        return self._jobs.pop(key).result()
+
+    def wait(self):
+        from concurrent.futures import wait
+
+        wait(list(self._jobs.values()))
+
+    def close(self):
+        self._pool.shutdown(wait=True, cancel_futures=True)
+
+
+def submit_cpu_references(refs):
+    """Every job of CpuReferences, in the order the phases read them."""
+    refs.submit("small", small_step_nl, "cpu")
+    for name, kw in TLAD_SMALL.items():
+        refs.submit(("tlad", name), tlad_cpu, kw)
+    for mode in (1, 2):
+        refs.submit(("phys", mode), phys_cpu, mode)
+    for name in OPTIONS_SMALL:
+        refs.submit(("options", name), options_cpu, name)
+
+
 def phase_build():
     from fv3jedi_lm_tpu_torch.ops import cuda_sim1
 
@@ -408,6 +611,15 @@ def phase_build():
     cuda_sim1._load()
     print(f"[build] {path.name} built+loaded in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+
+def phase_tapes(card):
+    """The packed tape storage on the card (tape_storage)."""
+    nbool, nbits, index = tape_storage("cuda")
+    print(f"[tapes] on the card: {nbits} decisions in {nbool} packed bytes, "
+          f"equal to the CPU's; replayed decisions equal; qsat's table index "
+          f"{index[0]}, {index[1]} bytes a value ({card[0]}; {card[1]})",
+          flush=True)
 
 
 def phase_kernel(card):
@@ -483,30 +695,40 @@ def phase_kernel(card):
                 solve_only_ms=solve_ms)
 
 
-def phase_small():
-    """The port on the GPU (kernel) vs the port on the CPU (plain), c12L10
-    float64, one step from the bump state (with humidity); then rest stays
-    at rest."""
+def small_step_nl(dev):
+    """phase_small's step_nl on `dev`: c12L10 float64, one step from the
+    bump state (with humidity), checking its SIM1 launches (2 per
+    acoustic substep on the card, none on the CPU).  Returns the
+    prognostic fields (numpy)."""
     from fv3jedi_lm_tpu_torch.config import DynConfig, LMConfig
     from fv3jedi_lm_tpu_torch.lm import LinearModel, traj_to_numpy
     from fv3jedi_lm_tpu_torch.ops.cuda_sim1 import sim1_solver_cuda
 
     cfg = LMConfig(dyn=DynConfig(**SMALL_KW), dt=450.0)
-    outs = {}
-    for dev in ("cuda", "cpu"):
-        lm = LinearModel.create(cfg, device=dev)
-        tr = lm.rest_traj()
-        tr["t"] = tr["t"] + _bump(lm)
-        tr = _moisten(lm, tr)
-        sim1_solver_cuda.launches = 0
-        outs[dev] = traj_to_numpy(lm.step_nl(tr))
-        launches = sim1_solver_cuda.launches
-        want = 2 * cfg.dyn.n_split if dev == "cuda" else 0
-        if launches != want:
-            raise AssertionError(f"{dev}: {launches} SIM1 launches, "
-                                 f"expected {want}")
-    for k in lm.prog_3d:
-        a, b = outs["cpu"][k], outs["cuda"][k]
+    lm = LinearModel.create(cfg, device=dev)
+    tr = lm.rest_traj()
+    tr["t"] = tr["t"] + _bump(lm)
+    tr = _moisten(lm, tr)
+    sim1_solver_cuda.launches = 0
+    out = traj_to_numpy(lm.step_nl(tr))
+    launches = sim1_solver_cuda.launches
+    want = 2 * cfg.dyn.n_split if dev == "cuda" else 0
+    if launches != want:
+        raise AssertionError(f"{dev}: {launches} SIM1 launches, "
+                             f"expected {want}")
+    return {k: out[k] for k in lm.prog_3d}
+
+
+def phase_small(refs):
+    """The port on the GPU (kernel) vs the port on the CPU (plain, from
+    the worker `refs`), small_step_nl; then rest stays at rest."""
+    from fv3jedi_lm_tpu_torch.config import DynConfig, LMConfig
+    from fv3jedi_lm_tpu_torch.lm import LinearModel
+
+    cfg = LMConfig(dyn=DynConfig(**SMALL_KW), dt=450.0)
+    outs = {"cuda": small_step_nl("cuda"), "cpu": refs.get("small")}
+    for k, a in outs["cpu"].items():
+        b = outs["cuda"][k]
         d = float(np.abs(a - b).max())
         scale = float(np.abs(a).max())
         print(f"[small] {k}: max|cuda-cpu|={d:.3e} max|cpu|={scale:.3e}",
@@ -561,7 +783,7 @@ def phase_full(card, nt=3):
     trajs = lm.run_nl(tr0)
     launches = sim1_solver_cuda.launches
     peak = torch.cuda.max_memory_allocated()
-    lm.step_nl = step
+    del lm.step_nl           # the class's method again, no cycle left
 
     for i, tr in enumerate(trajs[1:], 1):
         for k in lm.prog_3d:
@@ -617,14 +839,17 @@ def phase_profile(lm, tr):
                              f"expected {want}")
 
 
-def phase_tlad_small():
-    """The TL/AD pair on the GPU against the CPU at c12L10 float64,
-    hydrostatic and nonhydrostatic: every field to 1e-10 relative norm, the
-    dot-product identity below 1e-12 on the card, and SIM1 by mode: the
-    trajectory substeps of `forward` launch the kernel (2 per substep,
-    nonhydrostatic), the differentiated stages never do."""
+def phase_tlad_small(refs):
+    """The TL/AD pair on the GPU against the CPU (from the worker `refs`)
+    at c12L10 float64, hydrostatic and nonhydrostatic: every field to
+    1e-10 relative norm, the dot-product identity below 1e-12 on the card,
+    and SIM1 by mode: the trajectory substeps of `forward` launch the
+    kernel (2 per substep, nonhydrostatic), the differentiated stages
+    never do."""
     for name, kw in TLAD_SMALL.items():
-        res = tlad_devices(kw)
+        traj, cpu = refs.get(("tlad", name))
+        res = tlad_devices(kw, ("cuda",), traj)
+        res["cpu"] = cpu
         n_split = kw["n_split"]
         for sweep in ("tl", "ad"):
             worst = 0.0
@@ -737,6 +962,7 @@ def phase_tlad_full(card, pairs=4):
           f"{first:.4f} s (forward {parts['forward']:.4f} s, record "
           f"{parts['record']:.4f} s), then pairs "
           + ", ".join(f"{t:.4f}" for t in times) + " s", flush=True)
+    print_cached("tlad_full", lm, card)
     print(f"[tlad_full] best pair {best:.4f} s: "
           f"{n * n * 6 * cfg.dyn.npz / best:.1f} grid-points/s; peak device "
           f"memory {peak / 2**30:.3f} GiB; SIM1 launches {launches}; "
@@ -771,7 +997,8 @@ def profile_pair(lm, traj, pert, scopes):
     s, device events, device us, {scope: dict(calls, launches, dev_us,
     host_us)}).  A scope's device events are those of the operators that
     start inside it, matched by the Kineto correlation id; its host time
-    is the scope's own duration."""
+    is the scope's own duration.  Prints the seconds the trace took to
+    collect and read."""
     import bisect
 
     with _RawProfile(use_device="cuda", use_kineto=True) as prof:
@@ -781,6 +1008,7 @@ def profile_pair(lm, traj, pert, scopes):
         lm.step_ad(traj, tl)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    t_read = time.perf_counter()
     ops, ranges, per_op = [], [], {}
     n_dev, dev_us = 0, 0.0
     for e in prof.kineto_results.events():
@@ -811,6 +1039,8 @@ def profile_pair(lm, traj, pert, scopes):
             k, t = per_op.get(c, (0, 0.0))
             r["launches"] += k
             r["dev_us"] += t
+    print(f"[profile_pair] the trace of {n_dev} device events collected "
+          f"and read in {time.perf_counter() - t_read:.1f} s", flush=True)
     return wall, n_dev, dev_us, out
 
 
@@ -833,15 +1063,16 @@ def phase_tlad_profile(lm, traj, pert, best):
         raise AssertionError("tlad profile: no kernel events in the trace")
 
 
-def phase_phys_small():
+def phase_phys_small(refs):
     """The TL/AD pair and step_nl with the physics on the GPU against the
-    CPU at c8L12 float64 (tests/test_moist.py's configuration and
-    trajectory, the turbulence on), moist modes 1 and 2: every field to
-    1e-10 of its largest value, the dot-product identity below 1e-12 on
-    the card counting cfcn, some column convecting in mode 1, and no SIM1
-    launch on the hydrostatic path."""
+    CPU (from the worker `refs`) at c8L12 float64 (tests/test_moist.py's
+    configuration and trajectory, the turbulence on), moist modes 1 and 2:
+    every field to 1e-10 of its largest value, the dot-product identity
+    below 1e-12 on the card counting cfcn, some column convecting in mode
+    1, and no SIM1 launch on the hydrostatic path."""
     for mode in (1, 2):
-        res = phys_devices(mode)
+        res = phys_devices(mode, ("cuda",))
+        res["cpu"] = refs.get(("phys", mode))
         for sweep in ("nl", "tl", "ad"):
             worst = 0.0
             for k, want in res["cpu"][sweep].items():
@@ -899,6 +1130,7 @@ def phase_phys_full(card, pairs=4):
     convects, the turbulence mixes, the TL differs from the dynamics-only
     TL).  Returns (lm, traj, pert, best pair seconds, SIM1 launches)."""
     from fv3jedi_lm_tpu_torch.config import DynConfig, LMConfig
+    from fv3jedi_lm_tpu_torch.core import freeze
     from fv3jedi_lm_tpu_torch.lm import LinearModel
     from fv3jedi_lm_tpu_torch.ops.cuda_sim1 import sim1_solver_cuda
 
@@ -948,6 +1180,17 @@ def phase_phys_full(card, pairs=4):
             if not bool(torch.isfinite(d[k]).all()):
                 raise AssertionError(f"phys full {what} {k}: not finite")
     cks, tapes, mpack, ltraj = lm._ckpts(traj)
+    print_cached("phys_full", lm, card)
+    index = [e for e, _ in freeze.leaves(mpack[1])
+             if isinstance(e, torch.Tensor) and e.dtype == torch.uint16]
+    n_idx = sum(e.numel() for e in index)
+    b_idx = sum(e.numel() * e.element_size() for e in index)
+    print(f"[phys_full] qsat's table index on the moist tape: "
+          f"{len(index)} uint16 entries, {n_idx} values in {b_idx} B "
+          f"({card[0]}; {card[1]})", flush=True)
+    if not index or b_idx != 2 * n_idx:
+        raise AssertionError(f"phys full: qsat's table index takes {b_idx} "
+                             f"B for {n_idx} values, want 2 a value")
     share = float(mpack[0]["doconvec"].float().mean())
     aks = float(ltraj["aks"].abs().max())
     dyn = lm._staged().tl({k: traj[k] for k in lm.prog_3d}, traj["phis"],
@@ -1019,52 +1262,82 @@ def _rel_max(got, want):
             bool(np.isfinite(got).all()))
 
 
-def phase_options_small():
-    """Each dynamics option of OPTIONS_SMALL on its own, at c12L10 float64,
-    on the GPU against the CPU from one trajectory spun up on the CPU:
-    step_nl (with omega, the omga diagnostic), step_tl and step_ad each to
-    1e-10 of every field's largest value, the dot-product identity below
-    1e-12 on the card, and SIM1 by mode (the nonhydrostatic beta case
-    launches it 2 times per substep in the trajectory forward, never in the
-    differentiated stages; the hydrostatic cases never)."""
+def options_traj(name):
+    """The trajectory of option `name` of OPTIONS_SMALL (c12L10 float64):
+    spun up on the CPU (numpy), with fill_dp's thinned layer."""
+    from fv3jedi_lm_tpu_torch.lm import LinearModel, traj_to_numpy
+
+    cfg = _options_cfg(name)
+    cpu = LinearModel.create(cfg, device="cpu")
+    tr = spun_up(cpu, 2, moist=cfg.dyn.hydrostatic)
+    if name == "fill_dp":
+        # tests/test_mix_dp.py: a thinned layer, so that mix_dp mixes
+        delp = tr["delp"].clone()
+        delp[4, :, 3:6, 3:6] *= 0.002
+        tr = cpu.step_nl(dict(tr, delp=delp))
+    return traj_to_numpy(tr)
+
+
+def _options_cfg(name):
     from fv3jedi_lm_tpu_torch.config import DynConfig, LMConfig
+
+    return LMConfig(dyn=DynConfig(**TLAD_SMALL["hydrostatic"],
+                                  **OPTIONS_SMALL[name]), dt=450.0)
+
+
+def options_run(name, dev, traj):
+    """Option `name` on `dev` from the trajectory `traj`: step_nl (numpy,
+    with omga for omega), its SIM1 launches, and but for omega step_tl,
+    step_ad, their SIM1 launches and the dot-product identity's relative
+    error; `keys` the fields to compare."""
     from fv3jedi_lm_tpu_torch.lm import (LinearModel, traj_from_numpy,
                                          traj_to_numpy)
     from fv3jedi_lm_tpu_torch.ops.cuda_sim1 import sim1_solver_cuda
 
-    for name, over in OPTIONS_SMALL.items():
+    lm = LinearModel.create(_options_cfg(name), device=dev)
+    tr = traj_from_numpy(lm, traj)
+    sim1_solver_cuda.launches = 0
+    nl = traj_to_numpy(lm.step_nl(tr))
+    r = dict(nl=nl, nl_launches=sim1_solver_cuda.launches,
+             keys=lm.prog_3d + (("omga",) if name == "omega" else ()))
+    if name != "omega":
+        dx, dy = rand_pert(lm, 1), rand_pert(lm, 2)
+        sim1_solver_cuda.launches = 0
+        mdx = lm.step_tl(tr, dx)
+        mtdy = lm.step_ad(tr, dy)
+        r.update(tl=traj_to_numpy(mdx), ad=traj_to_numpy(mtdy),
+                 launches=sim1_solver_cuda.launches)
+        lhs = dot(mdx, dy, lm.prog_3d)
+        rhs = dot(dx, mtdy, lm.prog_3d)
+        r["dot"] = abs(lhs - rhs) / max(abs(lhs), 1e-300)
+    return r
+
+
+def options_cpu(name):
+    """phase_options_small's CPU half of option `name`: (its trajectory,
+    options_run on the CPU)."""
+    traj = options_traj(name)
+    return traj, options_run(name, "cpu", traj)
+
+
+def phase_options_small(refs):
+    """Each dynamics option of OPTIONS_SMALL on its own, at c12L10 float64,
+    on the GPU against the CPU (from the worker `refs`) from one
+    trajectory spun up on the CPU: step_nl (with omega, the omga
+    diagnostic), step_tl and step_ad each to 1e-10 of every field's
+    largest value, the dot-product identity below 1e-12 on the card, and
+    SIM1 by mode (the nonhydrostatic beta case launches it 2 times per
+    substep in the trajectory forward, never in the differentiated stages;
+    the hydrostatic cases never).  Each line's seconds are the card's run
+    and the wait for its CPU half."""
+    for name in OPTIONS_SMALL:
         t0 = time.perf_counter()
-        cfg = LMConfig(dyn=DynConfig(**TLAD_SMALL["hydrostatic"], **over),
-                       dt=450.0)
+        cfg = _options_cfg(name)
         hyd = cfg.dyn.hydrostatic
         tlad = name != "omega"
-        cpu = LinearModel.create(cfg, device="cpu")
-        tr = spun_up(cpu, 2, moist=hyd)
-        if name == "fill_dp":
-            # tests/test_mix_dp.py: a thinned layer, so that mix_dp mixes
-            delp = tr["delp"].clone()
-            delp[4, :, 3:6, 3:6] *= 0.002
-            tr = cpu.step_nl(dict(tr, delp=delp))
-        traj = traj_to_numpy(tr)
-        res = {}
-        for dev in ("cuda", "cpu"):
-            lm = LinearModel.create(cfg, device=dev)
-            tr = traj_from_numpy(lm, traj)
-            sim1_solver_cuda.launches = 0
-            nl = traj_to_numpy(lm.step_nl(tr))
-            r = dict(nl=nl, nl_launches=sim1_solver_cuda.launches)
-            if tlad:
-                dx, dy = rand_pert(lm, 1), rand_pert(lm, 2)
-                sim1_solver_cuda.launches = 0
-                mdx = lm.step_tl(tr, dx)
-                mtdy = lm.step_ad(tr, dy)
-                r.update(tl=traj_to_numpy(mdx), ad=traj_to_numpy(mtdy),
-                         launches=sim1_solver_cuda.launches)
-                lhs = dot(mdx, dy, lm.prog_3d)
-                rhs = dot(dx, mtdy, lm.prog_3d)
-                r["dot"] = abs(lhs - rhs) / max(abs(lhs), 1e-300)
-            res[dev] = r
-        keys = cpu.prog_3d + (("omga",) if name == "omega" else ())
+        traj, cpu = refs.get(("options", name))
+        res = {"cuda": options_run(name, "cuda", traj), "cpu": cpu}
+        keys = cpu["keys"]
         worst = {}
         for what in ("nl", "tl", "ad") if tlad else ("nl",):
             for k in keys:
@@ -1111,12 +1384,14 @@ def phase_window_full(card, nt=WINDOW_NT):
     _bench_case's trajectory and perturbation: run_nl (with omega), then
     run_tl(p) and run_ad(run_tl(p)) twice, each window timed to a
     synchronize, the first apart (it makes the linearizations); the bytes
-    of each cached step's checkpoints and tapes (debug.cache_bytes); the
-    float32 window dot-product error; the host timers' table; then the
-    window once with saveltraj=False (each step linearized again).  SIM1's
+    of each cached step's checkpoints, bool tapes and integer tapes
+    (print_cached); the float32 window dot-product error; the host
+    timers' table; then the window once with saveltraj=False (each step
+    linearized again).  After each window the dropped model
+    must have returned its device memory (memory_returned).  SIM1's
     launches counted over the window (0: hydrostatic).  Returns the SIM1
     launches."""
-    from fv3jedi_lm_tpu_torch import debug, timing
+    from fv3jedi_lm_tpu_torch import timing
     from fv3jedi_lm_tpu_torch.config import DynConfig, LMConfig
     from fv3jedi_lm_tpu_torch.lm import LinearModel
     from fv3jedi_lm_tpu_torch.ops.cuda_sim1 import sim1_solver_cuda
@@ -1147,6 +1422,8 @@ def phase_window_full(card, nt=WINDOW_NT):
         return lm, trajs, pert, t_nl
 
     sim1_solver_cuda.launches = 0
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     timing.timing_reset()
     timing.enable(True)
@@ -1169,7 +1446,7 @@ def phase_window_full(card, nt=WINDOW_NT):
     if not float(tl["u"].abs().max()) < 1e3:
         raise AssertionError("window: the TL grew from a 1e-3 perturbation "
                              f"to {float(tl['u'].abs().max())} m/s")
-    cached = debug.cache_bytes(lm)
+    cached = print_cached("window_full", lm, card)
     if len(cached) != nt:
         raise AssertionError(f"window: {len(cached)} cached steps, want {nt}")
     tag = f"({card[0]}; {card[1]})"
@@ -1183,10 +1460,6 @@ def phase_window_full(card, nt=WINDOW_NT):
               f"run_tl {t_tl:.4f} s ({t_tl / nt:.4f} s a step), run_ad "
               f"{t_ad:.4f} s ({t_ad / nt:.4f} s a step), TL+AD "
               f"{t_tl + t_ad:.4f} s {tag}", flush=True)
-    for i, (ck, tp, mp) in enumerate(cached):
-        print(f"[window_full] cached step {i}: checkpoints {ck} B "
-              f"({ck / 2**30:.3f} GiB), tapes {tp} B ({tp / 2**30:.3f} "
-              f"GiB), total {(ck + tp) / 2**30:.3f} GiB", flush=True)
     print(f"[window_full] peak device memory {peak / 2**30:.3f} GiB; "
           f"dot-product <M p, M p> vs <p, M^T M p> relative error "
           f"{rel:.3e} (float32); max|run_tl u| "
@@ -1196,12 +1469,11 @@ def phase_window_full(card, nt=WINDOW_NT):
           flush=True)
     timing.timing_prt()
     timing.timing_reset()
-    # the model and its stepper refer to each other: collect the cycle, so
-    # that the first window's cache is freed before the second
-    del lm, trajs, tl, ad
-    gc.collect()
+    del lm, trajs, pert, tl, ad
+    memory_returned("window_full (saveltraj)", before, card)
     torch.cuda.empty_cache()
 
+    before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     lm, trajs, pert, _ = window(False)
     tl, t_tl = sync_time(lm.run_tl, trajs, pert)
@@ -1217,16 +1489,55 @@ def phase_window_full(card, nt=WINDOW_NT):
     if launches != 0:
         raise AssertionError(f"window: {launches} SIM1 launches on the "
                              "hydrostatic path")
-    del lm, trajs, tl, ad
-    gc.collect()
+    del lm, trajs, pert, tl, ad
+    memory_returned("window_full (saveltraj=False)", before, card)
     torch.cuda.empty_cache()
     return launches
+
+
+def run_phases(card, record, refs, elapsed):
+    """The phases after the kernel's, in order; each model dropped must
+    return its device memory.  Fills `record`'s launch counts."""
+    phase_small(refs)
+    before = _allocated()
+    lm, last, record["launches"] = phase_full(card)
+    phase_profile(lm, last)
+    del lm, last
+    memory_returned("NH step_nl", before, card)
+    elapsed("NH step_nl")
+    phase_tlad_small(refs)
+    elapsed("tlad_small")
+    refs.wait()     # no worker runs while the c96L72 phases are timed
+    elapsed("CPU references")
+    before = _allocated()
+    lm, traj, pert, best, record["launches_tlad_c96L72"] = phase_tlad_full(
+        card)
+    phase_tlad_profile(lm, traj, pert, best)
+    del lm, traj, pert
+    memory_returned("tlad_full", before, card)
+    torch.cuda.empty_cache()
+    elapsed("tlad_full + profile")
+    phase_phys_small(refs)
+    elapsed("phys_small")
+    before = _allocated()
+    lm, traj, pert, best, record["launches_phys_c96L72"] = phase_phys_full(
+        card)
+    phase_phys_profile(lm, traj, pert, best)
+    del lm, traj, pert
+    memory_returned("phys_full", before, card)
+    torch.cuda.empty_cache()
+    elapsed("phys_full + profile")
+    phase_options_small(refs)
+    elapsed("options_small")
+    record["launches_window_c96L72"] = phase_window_full(card)
+    elapsed("window_full")
 
 
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    _cpu_worker()
     t_start = time.perf_counter()
 
     def elapsed(phase):
@@ -1238,34 +1549,16 @@ def main():
     print(card[1], flush=True)
     phase_build()
     record = phase_kernel(card)
-    elapsed("kernel")
-    phase_small()
-    lm, last, record["launches"] = phase_full(card)
-    phase_profile(lm, last)
-    del lm, last
-    elapsed("NH step_nl")
-    phase_tlad_small()
-    elapsed("tlad_small")
-    lm, traj, pert, best, record["launches_tlad_c96L72"] = phase_tlad_full(
-        card)
-    phase_tlad_profile(lm, traj, pert, best)
-    del lm, traj, pert
-    gc.collect()     # a model and its stepper form a reference cycle
-    torch.cuda.empty_cache()
-    elapsed("tlad_full + profile")
-    phase_phys_small()
-    elapsed("phys_small")
-    lm, traj, pert, best, record["launches_phys_c96L72"] = phase_phys_full(
-        card)
-    phase_phys_profile(lm, traj, pert, best)
-    del lm, traj, pert
-    gc.collect()
-    torch.cuda.empty_cache()
-    elapsed("phys_full + profile")
-    phase_options_small()
-    elapsed("options_small")
-    record["launches_window_c96L72"] = phase_window_full(card)
-    elapsed("window_full")
+    phase_tapes(card)
+    elapsed("kernel, tapes")
+    # the CPU halves of the small phases from here on run in workers,
+    # after the kernel's timings and before the c96L72 ones
+    refs = CpuReferences()
+    try:
+        submit_cpu_references(refs)
+        run_phases(card, record, refs, elapsed)
+    finally:
+        refs.close()
     print(card[1], flush=True)
     print(json.dumps({"kernels": [record]}))
     print(json.dumps({"ok": True, "device": {

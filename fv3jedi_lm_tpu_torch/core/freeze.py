@@ -13,9 +13,16 @@ nonlinear step is unchanged).
 
 The tape layout is the JAX package's: one entry per `fbool`/`fint` call,
 and one entry per `fscan` call holding that call's per-iteration entries
-stacked along a leading iteration axis.  Boolean entries are stored
-unpacked (the JAX package bit-packs them); integer entries with a static
-bound are stored in uint8 or int32.
+stacked along a leading iteration axis.  A boolean decision with ndim > 0
+is stored bit-packed (`Packed`): the bits of its flattened predicate 8 to
+a byte, first bit in the high bit (np.packbits, bitorder "big"), each
+iteration's predicate of an `fscan` entry packed as a row of its own, so
+an entry equals the JAX package's `_pack` byte for byte; a 0-dim decision
+stays a raw bool.  Integer entries with a static bound are stored in
+uint8, uint16 or int32.  The decisions are packed in a few batched
+operations when a `recording()` block exits, and unpacked in a few when
+`replaying(tape)` is entered, each entry then a view of the result: the
+cost is per tape, not per entry.
 
 `fmax`/`fmin` stay `where(a >= b, a, b)` rather than `torch.maximum`: ties
 and NaNs select the same operand as the JAX package does.
@@ -23,16 +30,176 @@ and NaNs select the same operand as the JAX package does.
 
 from __future__ import annotations
 
+import math
 from contextlib import contextmanager
 
 import torch
 
 _state = None  # None | ["rec", list] | ["rep", list, [cursor]]
 
+#: bits packed per batch when a recording exits: bounds the transient
+#: copy of the raw decisions (and keeps the batch 32-bit indexable)
+PACK_CHUNK_BITS = 1 << 28
+_CONSTS: dict = {}     # device -> (bit weights, zero padding bits)
+
+
+class Packed:
+    """A boolean tape entry stored bit-packed.  `data` is uint8 of shape
+    (*rows, ceil(n / 8)): each row the bits of one predicate of `shape`
+    (n elements) flattened, 8 to a byte, first bit in the high bit, the
+    last byte zero-padded; no row axis for an `fbool` entry, one per
+    enclosing `fscan` (or `record_entry`) for the entries inside it."""
+
+    __slots__ = ("data", "shape")
+
+    def __init__(self, data, shape):
+        self.data = data
+        self.shape = torch.Size(shape)
+
+    @property
+    def decisions(self):
+        """The decisions the entry holds: rows times the predicate's
+        elements (the padding bits not counted)."""
+        return self.data.shape[:-1].numel() * self.shape.numel()
+
+    def __repr__(self):
+        return (f"Packed(rows={tuple(self.data.shape[:-1])}, "
+                f"shape={tuple(self.shape)}, bytes={self.data.numel()})")
+
+
+def _consts(device):
+    """The bit weights 128, 64, ..., 1 (uint8) and 7 zero bits, made once
+    per device (no host-to-device copy per tape)."""
+    hit = _CONSTS.get(device)
+    if hit is None:
+        hit = (torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.uint8,
+                            device=device),
+               torch.zeros(7, dtype=torch.bool, device=device))
+        _CONSTS[device] = hit
+    return hit
+
+
+def _pack_group(group):
+    """Pack [(raw bool tensor, number of row axes, Packed slot)] in one
+    batch: the rows' bits, each row zero-padded to whole bytes, joined by
+    one `torch.cat`, then 8 bits to a byte; each slot's data is a view of
+    the packed bytes."""
+    weights, pad = _consts(group[0][0].device)
+    pieces, plan = [], []
+    for x, lead, slot in group:
+        rows = math.prod(x.shape[:lead])
+        n = math.prod(slot.shape)
+        nb = (n + 7) // 8
+        flat = x.reshape(rows, n)
+        if n % 8:
+            for r in range(rows):
+                pieces += [flat[r], pad[:8 * nb - n]]
+        else:
+            pieces.append(flat.reshape(-1))
+        plan.append((slot, x.shape[:lead], rows * nb))
+    bits = torch.cat(pieces) if len(pieces) > 1 else pieces[0]
+    data = (bits.view(torch.uint8).view(-1, 8) * weights).sum(
+        -1, dtype=torch.uint8)
+    off = 0
+    for slot, lead_shape, nbytes in plan:
+        slot.data = data[off:off + nbytes].view(*lead_shape, -1)
+        off += nbytes
+
+
+def _slots(e, lead, raw):
+    """`e` with its boolean leaves of ndim > 0 per row as empty `Packed`
+    slots, each new one added to the dict `raw` as (tensor, row axes,
+    slot); a decision recorded twice (one tensor) shares one slot, as it
+    shared one tensor.  (Module level, as are the walks below: a nested
+    function that calls itself is a reference cycle, which would keep the
+    decisions alive until a cyclic collection.)"""
+    if isinstance(e, list):
+        return [_slots(x, lead + 1, raw) for x in e]
+    if e.dtype != torch.bool or e.dim() == lead:
+        return e
+    hit = raw.get((id(e), lead))
+    if hit is None:
+        hit = raw[(id(e), lead)] = (e, lead, Packed(None, e.shape[lead:]))
+    return hit[2]
+
+
+def pack_tape(tape):
+    """A recorded tape with every boolean entry of ndim > 0 (of ndim > 0
+    per row inside an `fscan` entry) as a `Packed` entry: the JAX
+    package's `_pack`, in batches of at most PACK_CHUNK_BITS bits."""
+    raw = {}
+    out = [_slots(e, 0, raw) for e in tape]
+    group, size = [], 0
+    for x, lead, slot in raw.values():
+        if x.numel() == 0:
+            slot.data = torch.zeros(*x.shape[:lead],
+                                    (math.prod(slot.shape) + 7) // 8,
+                                    dtype=torch.uint8, device=x.device)
+            continue
+        if group and size + x.numel() > PACK_CHUNK_BITS:
+            _pack_group(group)
+            group, size = [], 0
+        group.append((x, lead, slot))
+        size += x.numel()
+    if group:
+        _pack_group(group)
+    return out
+
+
+def leaves(entries, lead=0):
+    """Yields (leaf, number of row axes) for each leaf of `entries` (a
+    tape, or a list of tapes), in order: a nested list (an `fscan` or
+    `record_entry` entry) adds a row axis; a leaf is a tensor or a
+    `Packed`."""
+    for e in entries:
+        if isinstance(e, (list, tuple)):
+            yield from leaves(e, lead + 1)
+        else:
+            yield e, lead
+
+
+def _rebuilt(e, views):
+    """Entry `e` with each `Packed` leaf replaced by views[id(leaf)]."""
+    if isinstance(e, list):
+        return [_rebuilt(x, views) for x in e]
+    return views[id(e)] if isinstance(e, Packed) else e
+
+
+def unpack_tape(tape):
+    """The tape with every `Packed` entry unpacked, in one batch: the
+    packed bytes joined by one `torch.cat` and expanded to bits by two
+    operations; each entry is a view of the bits, of shape (*rows,
+    *shape).  Other entries are passed through."""
+    # a shared slot once
+    slots = list({id(p): p for p, _ in leaves(tape)
+                  if isinstance(p, Packed)}.values())
+    if not slots:
+        return list(tape)
+    data = [p.data.reshape(-1) for p in slots]
+    flat = torch.cat(data) if len(data) > 1 else data[0]
+    bits = (flat.unsqueeze(-1) & _consts(flat.device)[0]).ne(0).view(-1)
+    views, off = {}, 0
+    for p in slots:
+        # the entry's bits as one strided view: a row every 8 * nb bits
+        # (its padding skipped), the predicate's elements contiguous
+        lead, nb = p.data.shape[:-1], p.data.shape[-1]
+        shape = (*lead, *p.shape)
+        stride, step = [0] * len(shape), 1
+        for i in range(len(shape) - 1, -1, -1):
+            if i == len(lead) - 1:
+                step = 8 * nb
+            stride[i] = step
+            step *= shape[i]
+        views[id(p)] = bits.as_strided(shape, stride, 8 * off)
+        off += math.prod(lead) * nb
+    return [_rebuilt(e, views) for e in tape]
+
 
 @contextmanager
 def recording():
-    """Record every frozen decision; yields the tape (a list of tensors)."""
+    """Record every frozen decision; yields the tape, a list of entries,
+    which holds the raw decisions inside the block and is packed in
+    place (`pack_tape`) when the block exits."""
     global _state
     prev = _state
     tape: list = []
@@ -41,15 +208,17 @@ def recording():
         yield tape
     finally:
         _state = prev
+    tape[:] = pack_tape(tape)
 
 
 @contextmanager
 def replaying(tape):
-    """Replay decisions from `tape` (a sequence in recording order); raises
-    if the block does not consume the whole tape."""
+    """Replay decisions from `tape` (a sequence in recording order, its
+    packed entries unpacked at once on entry); raises if the block does
+    not consume the whole tape."""
     global _state
     prev = _state
-    _state = ["rep", list(tape), [0]]
+    _state = ["rep", unpack_tape(tape), [0]]
     try:
         yield
         used = _state[2][0]
@@ -75,12 +244,12 @@ def mode():
 def record_entry(entry):
     """Append one entry, a list of tensors, to the tape being recorded (a
     loop that records its own decisions, laid out as `fscan` lays out its
-    entry)."""
+    entry: a row per iteration, each packed on its own)."""
     _state[1].append([_plain(t) for t in entry])
 
 
 def take_entry():
-    """The next entry of the tape being replayed."""
+    """The next entry of the tape being replayed (unpacked)."""
     return _next_entry()
 
 
@@ -138,7 +307,8 @@ def fbool(pred):
 def fint(idx, maxval=None):
     """Freeze an integer decision tensor (e.g. a searchsorted result).
     `maxval`, a static bound on the values (a remap level index is below
-    npz), selects compact storage: uint8 up to 255, int32 up to 2**31-1."""
+    npz), selects compact storage: uint8 up to 255, uint16 up to 65535
+    (the JAX package's), int32 up to 2**31-1."""
     if _state is None:
         return idx
     if _state[0] == "rec":
@@ -146,6 +316,8 @@ def fint(idx, maxval=None):
         if maxval is not None and not idx.dtype.is_floating_point:
             if maxval <= 255:
                 ent = ent.to(torch.uint8)
+            elif maxval <= 65535:
+                ent = ent.to(torch.uint16)
             elif maxval < 2 ** 31:
                 ent = ent.to(torch.int32)
         _state[1].append(ent)

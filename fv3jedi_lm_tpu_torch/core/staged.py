@@ -126,27 +126,31 @@ def jvp(fn, primals, tangents, tape=None):
 
 
 class StagedStepper:
-    """The forward/record/tl/ad sweeps of one LinearModel."""
+    """The forward/record/tl/ad sweeps of one LinearModel: its
+    configuration, grid, ak/bk (numpy, working precision), ptop and
+    `lm.Marshal`.  It keeps no reference to the model, so that dropping
+    the model frees it and its cache without a cyclic collection."""
 
-    def __init__(self, lm):
-        self.lm = lm
-        dyn = lm.cfg.dyn
+    def __init__(self, cfg, grid, topo, ak_np, bk_np, ptop, marshal):
+        dyn = cfg.dyn
         self.k_split = dyn.k_split
         self.n_split = dyn.n_split
         self.npz = dyn.npz
-        grid, topo = lm.grid, lm.topo
-        mdt = lm.cfg.dt / dyn.k_split
-        ptop = lm.ptop
-        ak = torch.as_tensor(lm.ak, dtype=lm.dtype, device=lm.device)
-        bk = torch.as_tensor(lm.bk, dtype=lm.dtype, device=lm.device)
-        dp_ref = reference_thickness(lm.ak, lm.bk)
-        pm = reference_pressure(lm.ak, lm.bk)
+        self._nx = dyn.nx
+        self._zeros = zeros = marshal.zeros
+        dtype, device = marshal.dtype, marshal.device
+        mdt = cfg.dt / dyn.k_split
+        ak = torch.as_tensor(ak_np, dtype=dtype, device=device)
+        bk = torch.as_tensor(bk_np, dtype=dtype, device=device)
+        dp_ref = reference_thickness(ak_np, bk_np)
+        pm = reference_pressure(ak_np, bk_np)
         npz = dyn.npz
+        pad, pad_phis, tracers = marshal.pad, marshal.pad_phis, marshal.tracers
 
         # ---- the stage functions ----
         def prep(prog, phis):
-            st, q = lm._pad(prog)
-            st["phis"] = lm._pad_phis(phis)
+            st, q = pad(prog)
+            st["phis"] = pad_phis(phis)
             return prep_stage(st, q, grid, topo, dyn, ptop)
 
         def pre(st):
@@ -159,7 +163,7 @@ class StagedStepper:
                                        mode=mode)
 
         def unpad_T(pb):
-            """Transpose of lm._unpad: the compute-domain cotangent in
+            """Transpose of `marshal.unpad`: the compute-domain cotangent in
             zero-padded internal state (the keys _unpad reads; every
             other key of the state, consv_te's te0_2d included, has a zero
             cotangent, which `vjp` supplies for a missing key)."""
@@ -170,7 +174,7 @@ class StagedStepper:
             bs = slice(NG, NG + n + 1)
 
             def z3(jy, jx, sy, sx, x):
-                out = lm._zeros(npz, 6, jy, jx)
+                out = zeros(npz, 6, jy, jx)
                 out[:, :, sy, sx] = x
                 return out
 
@@ -181,16 +185,16 @@ class StagedStepper:
             if not dyn.hydrostatic:
                 st["w"] = z3(jc, jc, cs, cs, pb["w"])
                 st["delz"] = z3(jc, jc, cs, cs, pb["delz"])
-            q = [z3(jc, jc, cs, cs, pb[name]) for name in lm.tracers]
+            q = [z3(jc, jc, cs, cs, pb[name]) for name in tracers]
             return st, q
 
-        self._stages = dict(prep=prep, pre=pre, post=post, unpad=lm._unpad,
-                            unpad_T=unpad_T)
+        self._stages = dict(prep=prep, pre=pre, post=post,
+                            unpad=marshal.unpad, unpad_T=unpad_T)
         self._sub_traj = make_acoustic_substep(
-            grid, topo, dyn, mdt, KAPPA, ptop, npz, lm.dtype, mode="traj",
+            grid, topo, dyn, mdt, KAPPA, ptop, npz, dtype, mode="traj",
             dp_ref=dp_ref, pm=pm)
         self._sub_mix = make_acoustic_substep(
-            grid, topo, dyn, mdt, KAPPA, ptop, npz, lm.dtype, mode="mixed",
+            grid, topo, dyn, mdt, KAPPA, ptop, npz, dtype, mode="mixed",
             dp_ref=dp_ref, pm=pm)
 
         # Checkpoint pruning (core/staged.py of the JAX package): carry
@@ -212,7 +216,7 @@ class StagedStepper:
     def _expand_carry(self, c):
         """The full carry from a pruned checkpoint, zeros for the pruned
         fields (a valid and exact linearization point for them)."""
-        n = self.lm.cfg.dyn.nx
+        n = self._nx
         jc = n + 2 * NG
         jb = jc + 1
         npz = self.npz
@@ -227,7 +231,7 @@ class StagedStepper:
         )
         full = dict(c)
         for k in self._prune:
-            full[k] = self.lm._zeros(*shapes[k])
+            full[k] = self._zeros(*shapes[k])
         return full
 
     # -- forward: the nonlinear step and its checkpoints ---------------------

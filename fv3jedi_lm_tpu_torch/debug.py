@@ -13,7 +13,9 @@ the AD stack (adStack.c:28-31 `mmctraffic`) and a checkpoint memory report
 * `check_state(prog)` runs the standard checks on a prognostic dict (the
   temperature's range, delp's positivity, the winds' magnitude);
 * `tape_report(lm)` gives the exact bytes of each cached trajectory's
-  checkpoints and branch tapes (and of its moist pack with the physics).
+  checkpoints and branch tapes, the tapes split into bit-packed boolean
+  decisions and integer decisions (and of its moist pack and turbulence
+  coefficients with the physics).
 
 All are gated on FV3LM_DEBUG: unset or "0", they return at once without
 reading any tensor.  `tree_bytes` and `tape_report` count bytes without
@@ -23,8 +25,11 @@ reading values and are not gated.
 from __future__ import annotations
 
 import os
+from typing import NamedTuple
 
 import torch
+
+from .core.freeze import Packed
 
 
 def _mode() -> str:
@@ -89,30 +94,66 @@ def check_state(prog, label=""):
     return ok
 
 
-def tree_bytes(tree):
-    """Bytes of every tensor in a pytree (dicts, lists, tuples); a tensor
-    met twice counts once."""
-    seen, total, stack = set(), 0, [tree]
+def tree_bytes(tree, seen=None):
+    """Bytes of every tensor in a pytree (dicts, lists, tuples, the bytes
+    of `Packed` tape entries); a tensor met twice counts once (also across
+    calls given the same set `seen` of the ids met)."""
+    return sum(tape_bytes(tree, seen))
+
+
+def tape_bytes(tree, seen=None):
+    """(boolean bytes, other bytes) of the tensors in a pytree: the first
+    counts packed decisions and raw bool tensors, the second every other
+    tensor (on a tape, the integer decisions)."""
+    seen = set() if seen is None else seen
+    nbool, nother, stack = 0, 0, [tree]
     while stack:
         x = stack.pop()
         if isinstance(x, dict):
             stack.extend(x.values())
         elif isinstance(x, (list, tuple)):
             stack.extend(x)
+        elif isinstance(x, Packed):
+            if id(x.data) not in seen:
+                seen.add(id(x.data))
+                nbool += x.data.numel()
         elif isinstance(x, torch.Tensor) and id(x) not in seen:
             seen.add(id(x))
-            total += x.numel() * x.element_size()
-    return total
+            if x.dtype == torch.bool:
+                nbool += x.numel()
+            else:
+                nother += x.numel() * x.element_size()
+    return nbool, nother
+
+
+class CachedBytes(NamedTuple):
+    """Bytes of one cached trajectory's linearization: checkpoints, the
+    dynamics tapes' boolean and integer decisions, the moist
+    linearization (ltraj) and its tape's boolean and integer decisions,
+    and the turbulence coefficients."""
+    ckpts: int
+    tape_bool: int
+    tape_int: int
+    moist: int = 0
+    moist_bool: int = 0
+    moist_int: int = 0
+    turb: int = 0
+
+    @property
+    def total(self):
+        return sum(self)
 
 
 def cache_bytes(lm):
-    """[(checkpoint bytes, tape bytes, moist-pack bytes)] per cached
-    trajectory of `lm`, oldest first."""
+    """[CachedBytes] per cached trajectory of `lm`, oldest first."""
     out = []
     for _, (_, entry) in lm._traj_cache.items():
-        cks, tapes, mpack = entry[0], entry[1], entry[2]
-        out.append((tree_bytes(cks), tree_bytes(tapes),
-                    tree_bytes(mpack) if mpack is not None else 0))
+        cks, tapes, mpack, ltraj = entry
+        moist = (tree_bytes(mpack[0]),) + tape_bytes(mpack[1]) if (
+            mpack is not None) else (0, 0, 0)
+        out.append(CachedBytes(tree_bytes(cks), *tape_bytes(tapes), *moist,
+                               tree_bytes(ltraj) if ltraj is not None
+                               else 0))
     return out
 
 
@@ -121,10 +162,15 @@ def tape_report(lm) -> str:
     tapenade_iter.F90:520-850 memory report).  Call after step_tl/step_ad
     has filled the cache."""
     parts = []
-    for ck, tp, mp in cache_bytes(lm):
-        s = f"ckpts {ck / 1e6:9.1f} MB  tapes {tp / 1e6:9.1f} MB"
-        if mp:
-            s += f"  moist {mp / 1e6:9.1f} MB"
+    for c in cache_bytes(lm):
+        s = (f"ckpts {c.ckpts / 1e6:9.1f} MB  tapes bool "
+             f"{c.tape_bool / 1e6:9.1f} MB int {c.tape_int / 1e6:9.1f} MB")
+        if c.moist:
+            s += (f"  moist {c.moist / 1e6:9.1f} MB, its tape bool "
+                  f"{c.moist_bool / 1e6:9.1f} MB int "
+                  f"{c.moist_int / 1e6:9.1f} MB")
+        if c.turb:
+            s += f"  turbulence {c.turb / 1e6:9.1f} MB"
         parts.append(s)
     body = "; ".join(parts) if parts else "no cached trajectories"
     return f"# fv3lm tape report ({len(parts)} cached traj): {body}"

@@ -57,6 +57,80 @@ PHYS_FIELDS = ("u", "v", "t", "qv", "qi", "ql", "o3")
 _DTYPES = {"float64": torch.float64, "float32": torch.float32}
 
 
+class Marshal:
+    """Compute-domain dicts to and from the padded internal state (halo NG)
+    of one model's configuration, dtype and device."""
+
+    def __init__(self, dyn, dtype, device, topo, tracers):
+        self.dyn = dyn
+        self.dtype = dtype
+        self.device = device
+        self.topo = topo
+        self.tracers = tracers
+
+    def zeros(self, *shape):
+        return torch.zeros(shape, dtype=self.dtype, device=self.device)
+
+    def pad(self, prog: dict):
+        """Compute-domain dict -> padded (halo NG) internal state; halos
+        enter zeroed and are filled inside fv_dynamics, shared D-grid edge
+        values made single-owner consistent."""
+        dyn = self.dyn
+        n = dyn.nx
+        npz = dyn.npz
+        jc = n + 2 * NG
+        jb = jc + 1
+        cs = slice(NG, NG + n)
+        bs = slice(NG, NG + n + 1)
+
+        def pad3(x, jy, jx, sy, sx):
+            out = self.zeros(npz, 6, jy, jx)
+            out[:, :, sy, sx] = x.to(self.dtype)
+            return out
+
+        st = {}
+        st["u"] = pad3(prog["u"], jb, jc, bs, cs)
+        st["v"] = pad3(prog["v"], jc, jb, cs, bs)
+        st["u"], st["v"] = halo.fix_shared_edges_dgrid(st["u"], st["v"],
+                                                       self.topo)
+        st["pt"] = pad3(prog["t"], jc, jc, cs, cs)
+        st["delp"] = pad3(prog["delp"], jc, jc, cs, cs)
+        if "w" in prog:
+            st["w"] = pad3(prog["w"], jc, jc, cs, cs)
+            st["delz"] = pad3(prog["delz"], jc, jc, cs, cs)
+        else:
+            st["w"] = self.zeros(npz, 6, jc, jc)
+        q = [pad3(prog[name], jc, jc, cs, cs) for name in self.tracers]
+        return st, q
+
+    def unpad(self, st: dict, q: list) -> dict:
+        n = self.dyn.nx
+        cs = slice(NG, NG + n)
+        bs = slice(NG, NG + n + 1)
+        out = {
+            "u": st["u"][:, :, bs, cs],
+            "v": st["v"][:, :, cs, bs],
+            "t": st["pt"][:, :, cs, cs],
+            "delp": st["delp"][:, :, cs, cs],
+        }
+        for name, qq in zip(self.tracers, q):
+            out[name] = qq[:, :, cs, cs]
+        if "delz" in st:
+            out["w"] = st["w"][:, :, cs, cs]
+            out["delz"] = st["delz"][:, :, cs, cs]
+        if "omga" in st:
+            # the vertical pressure velocity (compute_omega)
+            out["omga"] = st["omga"][:, :, cs, cs]
+        return out
+
+    def pad_phis(self, phis):
+        n = self.dyn.nx
+        jc = n + 2 * NG
+        phis_p = self.zeros(6, jc, jc)
+        phis_p[:, NG:NG + n, NG:NG + n] = phis.to(self.dtype)
+        return halo.fill_halo_center(phis_p, self.topo)
+
+
 class LinearModel:
     """Facade object: `create` once per (resolution, config, device), then
     step.  The grid lives on `device`, the GPU unless the caller passes
@@ -94,6 +168,11 @@ class LinearModel:
         self.ak = np.asarray(ak, np_dtype)
         self.bk = np.asarray(bk, np_dtype)
         self.ptop = float(ak[0])
+        # the marshalling, shared with the stepper, which holds no
+        # reference to the model: a dropped model is freed at once, with
+        # its cache (the reference's `delete`, fv3jedi_lm_mod.F90:223)
+        self._marshal = Marshal(dyn, self.dtype, self.device, self.topo,
+                                self.tracers)
         self._stepper = None
         # per-trajectory checkpoints and tapes (the reference's saveltraj
         # cache, fv3jedi_lm_utils_mod.F90:30): the whole window's with
@@ -118,19 +197,17 @@ class LinearModel:
         without a CUDA device a call that names none raises."""
         return cls(cfg, device, ak, bk, big=big)
 
-    def _zeros(self, *shape):
-        return torch.zeros(shape, dtype=self.dtype, device=self.device)
-
     def zero_pert(self) -> dict:
         """A zero perturbation (allocate_pert, fv3jedi_lm_utils_mod.F90:75)."""
         n = self.cfg.dyn.nx
         npz = self.cfg.dyn.npz
-        p = {f: self._zeros(npz, 6, n, n) for f in ("t", "delp") + self.tracers}
-        p["u"] = self._zeros(npz, 6, n + 1, n)
-        p["v"] = self._zeros(npz, 6, n, n + 1)
+        zeros = self._marshal.zeros
+        p = {f: zeros(npz, 6, n, n) for f in ("t", "delp") + self.tracers}
+        p["u"] = zeros(npz, 6, n + 1, n)
+        p["v"] = zeros(npz, 6, n, n + 1)
         if not self.cfg.dyn.hydrostatic:
-            p["w"] = self._zeros(npz, 6, n, n)
-            p["delz"] = self._zeros(npz, 6, n, n)
+            p["w"] = zeros(npz, 6, n, n)
+            p["delz"] = zeros(npz, 6, n, n)
         return p
 
     def rest_traj(self, t0: float = 280.0, ps0: float = 1.0e5) -> dict:
@@ -142,7 +219,7 @@ class LinearModel:
         tr["delp"] = torch.as_tensor((pe[1:] - pe[:-1]) * np.ones((1, 6, n, n)),
                                      dtype=self.dtype, device=self.device)
         tr["t"] = torch.full_like(tr["t"], t0)
-        tr["phis"] = self._zeros(6, n, n)
+        tr["phis"] = self._marshal.zeros(6, n, n)
         if not self.cfg.dyn.hydrostatic:
             # layer depths in discrete balance with the SIM1 equation of
             # state: rho*R*T == pm, so the NH solver starts with zero
@@ -155,79 +232,18 @@ class LinearModel:
                 -(dm / GRAV) * RGAS * t0 / pm * np.ones((1, 6, n, n)),
                 dtype=self.dtype, device=self.device)
         for f in SURFACE_2D:
-            tr[f] = self._zeros(6, n, n)
+            tr[f] = self._marshal.zeros(6, n, n)
         return tr
-
-    # -- marshalling -----------------------------------------------------------
-
-    def _pad(self, prog: dict):
-        """Compute-domain dict -> padded (halo NG) internal state; halos
-        enter zeroed and are filled inside fv_dynamics, shared D-grid edge
-        values made single-owner consistent."""
-        dyn = self.cfg.dyn
-        n = dyn.nx
-        npz = dyn.npz
-        jc = n + 2 * NG
-        jb = jc + 1
-        cs = slice(NG, NG + n)
-        bs = slice(NG, NG + n + 1)
-
-        def pad3(x, jy, jx, sy, sx):
-            out = self._zeros(npz, 6, jy, jx)
-            out[:, :, sy, sx] = x.to(self.dtype)
-            return out
-
-        st = {}
-        st["u"] = pad3(prog["u"], jb, jc, bs, cs)
-        st["v"] = pad3(prog["v"], jc, jb, cs, bs)
-        st["u"], st["v"] = halo.fix_shared_edges_dgrid(st["u"], st["v"],
-                                                       self.topo)
-        st["pt"] = pad3(prog["t"], jc, jc, cs, cs)
-        st["delp"] = pad3(prog["delp"], jc, jc, cs, cs)
-        if "w" in prog:
-            st["w"] = pad3(prog["w"], jc, jc, cs, cs)
-            st["delz"] = pad3(prog["delz"], jc, jc, cs, cs)
-        else:
-            st["w"] = self._zeros(npz, 6, jc, jc)
-        q = [pad3(prog[name], jc, jc, cs, cs) for name in self.tracers]
-        return st, q
-
-    def _unpad(self, st: dict, q: list) -> dict:
-        n = self.cfg.dyn.nx
-        cs = slice(NG, NG + n)
-        bs = slice(NG, NG + n + 1)
-        out = {
-            "u": st["u"][:, :, bs, cs],
-            "v": st["v"][:, :, cs, bs],
-            "t": st["pt"][:, :, cs, cs],
-            "delp": st["delp"][:, :, cs, cs],
-        }
-        for name, qq in zip(self.tracers, q):
-            out[name] = qq[:, :, cs, cs]
-        if "delz" in st:
-            out["w"] = st["w"][:, :, cs, cs]
-            out["delz"] = st["delz"][:, :, cs, cs]
-        if "omga" in st:
-            # the vertical pressure velocity (compute_omega)
-            out["omga"] = st["omga"][:, :, cs, cs]
-        return out
-
-    def _pad_phis(self, phis):
-        n = self.cfg.dyn.nx
-        jc = n + 2 * NG
-        phis_p = self._zeros(6, jc, jc)
-        phis_p[:, NG:NG + n, NG:NG + n] = phis.to(self.dtype)
-        return halo.fill_halo_center(phis_p, self.topo)
 
     # -- stepping ----------------------------------------------------------------
 
     def _step_fn(self, prog: dict, phis: torch.Tensor) -> dict:
         """One model step dt on compute-domain prognostic fields."""
-        st, q = self._pad(prog)
-        st["phis"] = self._pad_phis(phis)
+        st, q = self._marshal.pad(prog)
+        st["phis"] = self._marshal.pad_phis(phis)
         st, q = fv_dynamics(st, q, self.grid, self.topo, self.cfg.dyn,
                             self.cfg.dt, self.ak, self.bk, self.ptop)
-        return self._unpad(st, q)
+        return self._marshal.unpad(st, q)
 
     def step_nl(self, traj: dict) -> dict:
         """Nonlinear trajectory step (fv3jedi_lm_mod.F90:148-157): the
@@ -269,7 +285,9 @@ class LinearModel:
     def _staged(self):
         if self._stepper is None:
             from .core.staged import StagedStepper
-            self._stepper = StagedStepper(self)
+            self._stepper = StagedStepper(self.cfg, self.grid, self.topo,
+                                          self.ak, self.bk, self.ptop,
+                                          self._marshal)
         return self._stepper
 
     def _traj_token(self, traj):
@@ -312,7 +330,7 @@ class LinearModel:
     # -- physics ---------------------------------------------------------------
 
     def _sfc(self, traj, names, shape):
-        return {f: traj[f] if f in traj else self._zeros(*shape)
+        return {f: traj[f] if f in traj else self._marshal.zeros(*shape)
                 for f in names}
 
     def _moist_sfc(self, traj):
@@ -345,7 +363,7 @@ class LinearModel:
         out = self._turb.apply(ltraj, fs)
         u = torch.cat([out["u"], prog["u"][..., n:, :]], -2)
         v = torch.cat([out["v"], prog["v"][..., :, n:]], -1)
-        st, _ = self._pad(dict(prog, u=u, v=v))
+        st, _ = self._marshal.pad(dict(prog, u=u, v=v))
         cs = slice(NG, NG + n)
         bs = slice(NG, NG + n + 1)
         return dict(prog, u=st["u"][:, :, bs, cs], v=st["v"][:, :, cs, bs],

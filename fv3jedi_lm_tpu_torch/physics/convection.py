@@ -125,7 +125,8 @@ def sundq3_ice(temp, rate2, rate3, te1):
 def acritn(pl, plb, acritfac):
     """Critical cloud work function (convection.F90:662-692); pl/plb are
     pressures in hPa, never differentiated."""
-    iwk = torch.floor(pl * 0.02 - 0.999999999).to(torch.int64)
+    # int32, as the JAX package stores it on the tape
+    iwk = torch.floor(pl * 0.02 - 0.999999999).to(torch.int32)
     iwk = fint(iwk)
     ph = _const_arr(ACRIT_PH, pl)
     a = _const_arr(ACRIT_A, pl)

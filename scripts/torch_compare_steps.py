@@ -2,6 +2,7 @@
 
 Usage (on a CUDA host):
     python scripts/torch_compare_steps.py ROOT [ROOT ...] [--nt N] [--memory]
+        [--pair]
 
 For each ROOT (a checkout of the repo) in the order given, a fresh process
 imports that checkout's `fv3jedi_lm_tpu_torch` and `chip_smoke`, and runs
@@ -10,6 +11,12 @@ NH float32 configuration from its bump-and-humidity state, timing each
 step to a `torch.cuda.synchronize()`; it prints the step seconds and the
 peak device memory, one line per ROOT.  Pass the roots as parent, change,
 change, parent to compare two commits on one card.
+
+With --pair, each ROOT times the main path instead: a first c96L72
+hydrostatic step_tl + step_ad pair (chip_smoke.TLAD_FULL_KW on
+chip_smoke._bench_case's trajectory and perturbation, which also makes
+the trajectory's checkpoints and tapes), then N pairs, each to a
+`torch.cuda.synchronize()`, and the peak device memory.
 
 With --memory, one more step runs under the CUDA caching allocator's
 history, and the live bytes of that step at its peak are printed grouped
@@ -29,6 +36,24 @@ import torch
 import chip_smoke as cs
 from fv3jedi_lm_tpu_torch.config import DynConfig, LMConfig
 from fv3jedi_lm_tpu_torch.lm import LinearModel
+
+if sys.argv[4] == "1":
+    lm = LinearModel.create(LMConfig(dyn=DynConfig(**cs.TLAD_FULL_KW),
+                                     dt=cs.FULL_DT))
+    traj, pert = cs._bench_case(lm)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(nt + 1):
+        t0 = time.perf_counter()
+        lm.step_ad(traj, lm.step_tl(traj, pert))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"{root}: first pair {times[0]:.4f} s, then pairs "
+          + ", ".join(f"{t:.4f}" for t in times[1:])
+          + f" s; peak {peak:.3f} GiB", flush=True)
+    sys.exit(0)
 
 lm = LinearModel.create(LMConfig(dyn=DynConfig(**cs.FULL_KW), dt=cs.FULL_DT))
 tr = lm.rest_traj()
@@ -78,13 +103,15 @@ if memory:
 
 
 def main(argv):
-    nt, memory, roots = 3, False, []
+    nt, memory, pair, roots = 3, False, False, []
     it = iter(argv)
     for a in it:
         if a == "--nt":
             nt = int(next(it))
         elif a == "--memory":
             memory = True
+        elif a == "--pair":
+            pair = True
         else:
             roots.append(a)
     if not roots:
@@ -92,7 +119,7 @@ def main(argv):
         return 2
     for root in roots:
         r = subprocess.run([sys.executable, "-c", _CHILD, root, str(nt),
-                            "1" if memory else "0"])
+                            "1" if memory else "0", "1" if pair else "0"])
         if r.returncode != 0:
             return r.returncode
     return 0

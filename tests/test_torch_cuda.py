@@ -25,7 +25,10 @@ physics check is chip_smoke.py's phase_phys_small at c8L12 float64 with
 the turbulence and moist modes 1 and 2: step_nl/step_tl/step_ad on the
 GPU equal the CPU's to 1e-10 of each field's largest value, the identity
 holds below 1e-12 on the card counting cfcn, mode 1 convects somewhere,
-and SIM1 never runs.
+and SIM1 never runs.  The tape check is chip_smoke.py's phase_tapes:
+decisions recorded on the card are stored in the same packed bytes as on
+the CPU, replay to the recorded decisions, and qsat's table index takes
+2 bytes a value (uint16).
 """
 
 import numpy as np
@@ -116,3 +119,16 @@ def test_physics_gpu_matches_cpu(mode):
     assert res["cuda"]["sim1"] == 0
     if mode == 1:
         assert res["cuda"]["doconvec"] > 0
+
+
+@pytest.mark.cuda
+def test_tape_storage_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    nbool, nbits, index = chip_smoke.tape_storage("cuda")
+    # four predicates, an fscan of 6 rows of 15, and dqsat's three
+    # decisions (the clip's two and the saturation) of 101 values
+    sizes = [7, 16, 45, 72 * 13 * 11] + [15] * 6 + [101] * 3
+    assert nbits == sum(sizes)
+    assert nbool == sum((n + 7) // 8 for n in sizes)
+    assert index == (torch.uint16, 2)

@@ -17,8 +17,9 @@
   DYN_KW from `_spun_up`'s trajectory and `_rand_pert(1)`/`_rand_pert(2)`,
   each field to 1e-10 relative norm;
 * the branch tapes of substep 0 (stages a, b, c) and of the post stage,
-  entry for entry against the JAX package's, which sit in its
-  `_traj_cache` after the JAX `step_tl`.
+  entry for entry and byte for byte (packed decisions, compacted indices)
+  against the JAX package's, which sit in its `_traj_cache` after the JAX
+  `step_tl`.
 
 The JAX models are built from tests/test_lm.py's own DYN_KW and helpers,
 so that their programs are those that file compiles (and may find in the
@@ -427,20 +428,35 @@ def _entries(port_entry, jax_entry, path, out):
 
 
 def _decisions(p, j):
-    """The JAX entry `j` as the port stores entry `p`: bool entries are
-    bit-packed per predicate (one packed row per fscan iteration), integer
-    entries compacted; returns (port, jax) numpy arrays of equal shape."""
-    p = p.numpy()
-    if p.dtype == bool and j.dtype == np.uint8:
-        lead = j.ndim - 1
-        count = int(np.prod(p.shape[lead:]))
-        rows = j.reshape(-1, j.shape[-1])
-        j = np.stack([np.unpackbits(r, count=count) for r in rows])
-        j = j.reshape(p.shape).astype(bool)
-    elif p.dtype != bool:
-        p, j = p.astype(np.int64), j.astype(np.int64)
-    assert p.shape == j.shape, (p.shape, j.shape)
+    """The bytes the port's entry `p` and the JAX package's entry `j`
+    store, as numpy arrays of equal shape and dtype: a boolean entry
+    bit-packed on both sides (`freeze.Packed` against the JAX package's
+    `_pack`, one packed row per fscan iteration), an integer entry
+    compacted alike."""
+    p = p.data.numpy() if isinstance(p, freeze.Packed) else p.numpy()
+    assert p.shape == j.shape and p.dtype == j.dtype, (p.shape, p.dtype,
+                                                       j.shape, j.dtype)
     return p, j
+
+
+def _bits(x, shape):
+    """Packed bytes `x` (*rows, nbytes) as the decisions they hold, bool
+    (*rows, *shape)."""
+    n = int(np.prod(shape))
+    return np.unpackbits(x, axis=-1, count=n).reshape(
+        x.shape[:-1] + tuple(shape)).astype(bool)
+
+
+def _differing(p, j):
+    """None where the port's entry `p` and the JAX package's entry `j`
+    store the same bytes; else the mask of the decisions that differ, in
+    the recorded decision's shape (the bytes unpacked only here)."""
+    pp, jj = _decisions(p, j)
+    if np.array_equal(pp, jj):
+        return None
+    if isinstance(p, freeze.Packed):
+        return _bits(pp, p.shape) != _bits(jj, p.shape)
+    return pp != jj
 
 
 _CMP = {"gt", "ge", "lt", "le", "eq", "ne", "greater", "greater_equal",
@@ -513,11 +529,20 @@ class _TieMode(TorchFunctionMode):
         return out
 
 
+def _tree(fn, x, lead=0):
+    """fn(leaf, its number of row axes) over a raw tape entry (lists are
+    fscan entries, each level one more row axis)."""
+    if isinstance(x, list):
+        return [_tree(fn, y, lead + 1) for y in x]
+    return fn(x, lead)
+
+
 class _Forced(list):
-    """A recording tape that keeps the port's own decision at each entry
-    and hands the port the JAX package's decision instead (written into
-    the boolean predicate in place), so that every decision is computed
-    from the same upstream decisions as the JAX package's."""
+    """A recording tape that keeps the port's own raw decisions at each
+    entry and hands the port the JAX package's decision instead (unpacked
+    and written into the boolean predicate in place), so that every
+    decision is computed from the same upstream decisions as the JAX
+    package's."""
 
     def __init__(self, jax_entries):
         super().__init__()
@@ -527,16 +552,18 @@ class _Forced(list):
     def append(self, entry):
         assert len(self) < len(self.jax), "the port records more entries"
         j = self.jax[len(self)]
-        self.own.append(entry.clone())
-        if entry.dtype == torch.bool:
-            entry.copy_(torch.as_tensor(_decisions(entry, j)[1]))
+        self.own.append(_tree(lambda x, lead: x.clone(), entry))
+        if isinstance(entry, torch.Tensor) and entry.dtype == torch.bool:
+            want = (_bits(j, entry.shape) if entry.dim() else j)
+            entry.copy_(torch.as_tensor(want))
         super().append(entry)
 
 
 @torch.no_grad()
 def _forced_decisions(port, tr, which, jax_tapes):
     """The port's own decisions of the `which` stages, each computed with
-    the JAX package's decisions upstream, and their tie masks (_TieMode;
+    the JAX package's decisions upstream, packed as `freeze.recording`
+    packs them, and their tie masks in the decisions' shapes (_TieMode;
     None for integer entries)."""
     cks = port._ckpts(tr)[0]
     stepper = port._staged()
@@ -569,17 +596,41 @@ def _forced_decisions(port, tr, which, jax_tapes):
         bc = run(sb, (ab, consts), jax_tapes[1])
         run(sc, (bc, consts), jax_tapes[2])
 
-    def masks(t):
-        if isinstance(t, (list, tuple)):
-            return [masks(x) for x in t]
-        return mode.tie(t).numpy() if t.dtype == torch.bool else None
-    return own, masks(own)
+    def tie(x, lead):
+        return mode.tie(x).numpy() if x.dtype == torch.bool else None
+
+    if which == "post":
+        return freeze.pack_tape(own), [_tree(tie, e) for e in own]
+    return ([freeze.pack_tape(t) for t in own],
+            [[_tree(tie, e) for e in t] for t in own])
+
+
+def _untied(leaves, own, ties, jax_tape, root):
+    """(number of differing decisions at ties, the paths and counts of
+    those that differ elsewhere): the port's own decisions `own`
+    (recorded with the JAX package's upstream) against the JAX package's,
+    over the entries whose recorded bytes differ."""
+    n_tie, untied = 0, []
+    for (path, p, j), (_, o, _), (_, t, _) in zip(
+            leaves, _entries(own, jax_tape, root, []),
+            _entries(ties, jax_tape, root, [])):
+        diff = _differing(o, j)
+        if diff is None:
+            continue
+        tie = np.zeros_like(diff) if t is None else t
+        n_tie += int((diff & tie).sum())
+        if (diff & ~tie).any():
+            untied.append(f"{path}: {int((diff & ~tie).sum())} of "
+                          f"{diff.size} decisions differ where the operands "
+                          "do not tie")
+    return n_tie, untied
 
 
 @pytest.mark.parametrize("which", ["sub0", "post"])
 def test_tapes_match_jax(tlad, port, which):
     """Substep 0 (stages a, b, c) and the post stage: equal entry counts,
-    shapes and decisions.  Where a decision differs, the stage is recorded
+    and each entry's stored bytes (packed decisions, compacted indices)
+    equal to the JAX package's.  Where they differ, the stage is recorded
     again with the JAX package's decisions handed to the port at every
     entry, so that no difference propagates; there each of the port's own
     decisions must equal the JAX package's or be a tie, the comparison
@@ -590,27 +641,13 @@ def test_tapes_match_jax(tlad, port, which):
     assert len(leaves) > 0
     n_diff = 0
     for path, p, j in leaves:
-        pp, jj = _decisions(p, j)
-        n_diff += int((pp != jj).sum())
+        diff = _differing(p, j)
+        n_diff += 0 if diff is None else int(diff.sum())
     if n_diff == 0:
         return
     own, ties = _forced_decisions(port, tlad["traj"], which,
                                   jax_tapes[which])
-    untied = []
-    n_tie = 0
-    for (path, p, j), (_, o, _), (_, t, _) in zip(
-            leaves, _entries(own, jax_tapes[which], (which,), []),
-            _entries(ties, jax_tapes[which], (which,), [])):
-        oo, jj = _decisions(o, j)
-        diff = oo != jj
-        if not diff.any():
-            continue
-        tie = np.zeros_like(diff) if t is None else t
-        n_tie += int((diff & tie).sum())
-        if (diff & ~tie).any():
-            untied.append(f"{path}: {int((diff & ~tie).sum())} of "
-                          f"{diff.size} decisions differ where the operands "
-                          "do not tie")
+    n_tie, untied = _untied(leaves, own, ties, jax_tapes[which], (which,))
     print(f"{which}: {n_diff} decisions differ in the recorded tapes; with "
           f"the upstream decisions equal, {n_tie} ties and "
           f"{len(untied)} entries with other differences")

@@ -7,8 +7,8 @@
   math.fsum), del2_cubed, adv_pe, mix_dp (tests/test_mix_dp.py's cases),
   grad1_p_update, split_p_grad, rayleigh_super/rayleigh_friction,
   update_dz_d with del-n damping and tracer_2d with trdm2.  Each output
-  agrees to 1e-12 of its largest value, each branch tape entry for entry,
-  and a vjp through each port operator runs under
+  agrees to 1e-12 of its largest value, each branch tape entry for entry
+  and byte for byte (packed decisions), and a vjp through each port operator runs under
   `torch.autograd.set_detect_anomaly`.
 * Steps, one case per option at the configuration of the JAX package's
   test of that option (tests/test_energetics.py, test_beta.py,
@@ -16,7 +16,7 @@
   `step_nl` against the JAX package to 1e-11, and the dot-product
   identity of the port's step_tl/step_ad to that JAX test's tolerance.
   `step_tl`/`step_ad` against the JAX package to 1e-11, and their tapes
-  entry for entry (differing decisions only at ties), for the production
+  byte for byte (differing decisions only at ties), for the production
   options together (hord 10, kord 9, d_con with the vorticity damping,
   consv_te, tau, fill_dp): one JAX TL/AD compile costs minutes on one
   core.
@@ -64,8 +64,8 @@ from fv3jedi_lm_tpu_torch.ops import d_sw as tdsw
 from fv3jedi_lm_tpu_torch.ops import fv_mapz as tmapz
 from fv3jedi_lm_tpu_torch.ops import ppm as tppm
 from fv3jedi_lm_tpu_torch.ops import reductions as tred
-from test_torch_hydro import (_decisions, _entries, _forced_decisions,
-                              _TieMode)
+from test_torch_hydro import (_differing, _entries, _forced_decisions,
+                              _TieMode, _untied)
 
 torch.set_num_threads(1)
 
@@ -113,17 +113,18 @@ def _close(got, ref, tol=1e-12, what=""):
 
 
 def _tapes_equal(port_tape, jax_tape, what=""):
-    """The two tapes have the same entries, shapes and decisions; a
-    decision may differ only at a tie (its comparison's operands agree to
-    1e-12 of their scale, tests/test_torch_hydro.py _TieMode).  Returns
-    the number of entries."""
-    tape, mode = port_tape
+    """The two tapes have the same entries and each entry the same stored
+    bytes; a decision may differ only at a tie (its comparison's operands
+    agree to 1e-12 of their scale, tests/test_torch_hydro.py _TieMode),
+    found on the raw decisions the block recorded.  Returns the number of
+    entries."""
+    tape, raw, mode = port_tape
     leaves = _entries(list(tape), list(jax_tape), (what,), [])
-    for path, p, j in leaves:
-        pp, jj = _decisions(p, j)
-        diff = pp != jj
-        if diff.any():
-            tie = mode.tie(p).numpy() if p.dtype == torch.bool else False
+    for (path, p, j), (_, r, _) in zip(
+            leaves, _entries(raw, list(jax_tape), (what,), [])):
+        diff = _differing(p, j)
+        if diff is not None:
+            tie = mode.tie(r).numpy() if r.dtype == torch.bool else False
             assert not (diff & ~tie).any(), (path, int(diff.sum()))
     return len(leaves)
 
@@ -137,8 +138,9 @@ def _jx(fn, *args):
 
 
 def _both(jfn, tfn, jargs, targs):
-    """(JAX outputs, port outputs, JAX tape, (port tape, its ties)) of one
-    operator called on the same inputs, both recording their decisions."""
+    """(JAX outputs, port outputs, JAX tape, (port tape, its raw
+    decisions, their ties)) of one operator called on the same inputs,
+    both recording their decisions."""
     def rec(*a):
         with jfreeze.recording() as t:
             out = jfn(*a)
@@ -148,7 +150,8 @@ def _both(jfn, tfn, jargs, targs):
     mode = _TieMode()
     with freeze.recording() as tt, mode:
         got = tfn(*targs)
-    return ref, got, jt, (tt, mode)
+        raw = list(tt)        # the decisions before the block packs them
+    return ref, got, jt, (tt, raw, mode)
 
 
 def _vjp_anomaly(fn, args):
@@ -781,22 +784,15 @@ def test_production_dot_product(production):
 
 @pytest.mark.parametrize("which", ["sub0", "post"])
 def test_production_tapes_match_jax(production, which):
-    """Substep 0 (stages a, b, c) and the post stage: equal entry counts,
-    shapes and decisions; where a decision differs, recorded again with
-    the JAX package's decisions upstream it must be a tie
+    """Substep 0 (stages a, b, c) and the post stage: equal entry counts
+    and stored bytes; where a decision differs, recorded again with the
+    JAX package's decisions upstream it must be a tie
     (tests/test_torch_hydro.py test_tapes_match_jax)."""
     port_tapes, jax_tapes = production["tapes"]
     leaves = _entries(port_tapes[which], jax_tapes[which], (which,), [])
-    n_diff = sum(int((np.not_equal(*_decisions(p, j))).sum())
-                 for _, p, j in leaves)
-    if n_diff == 0:
+    if all(_differing(p, j) is None for _, p, j in leaves):
         return
     own, ties = _forced_decisions(production["lm"], production["traj"],
                                   which, jax_tapes[which])
-    for (path, _, j), (_, o, _), (_, t, _) in zip(
-            leaves, _entries(own, jax_tapes[which], (which,), []),
-            _entries(ties, jax_tapes[which], (which,), [])):
-        oo, jj = _decisions(o, j)
-        diff = oo != jj
-        tie = np.zeros_like(diff) if t is None else t
-        assert not (diff & ~tie).any(), path
+    _, untied = _untied(leaves, own, ties, jax_tapes[which], (which,))
+    assert not untied, "; ".join(untied)

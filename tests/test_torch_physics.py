@@ -53,7 +53,7 @@ from test_lock_rad import _column_setup
 from test_lscloud_oracle import _random_columns, oracle_ls_cloud
 from test_physics_oracle import (oracle_acritn, oracle_dqsat_ras,
                                  oracle_sundq3)
-from test_torch_hydro import _TieMode, _decisions, _entries
+from test_torch_hydro import _TieMode, _differing, _entries
 
 torch.set_num_threads(1)
 
@@ -496,32 +496,32 @@ class _PlainTieMode(_TieMode):
 
 
 def _tape_ties(m, ltraj):
-    """The port's tape recorded again under _PlainTieMode, with the tie
-    mask of every boolean entry (None for integer entries)."""
+    """The port's tape recorded again under _PlainTieMode, packed, with
+    the tie mask of every boolean decision in its recorded shape (None
+    for integer entries)."""
     mode = _PlainTieMode()
     with torch.no_grad(), freeze.recording() as tape, mode:
         m._moist_step(ltraj, m._x0(ltraj))
+        raw = list(tape)          # the decisions before the block packs them
 
     def masks(t):
         if isinstance(t, (list, tuple)):
             return [masks(x) for x in t]
         return mode.tie(t).numpy() if t.dtype == torch.bool else None
-    return tape, masks(tape)
+    return tape, masks(raw)
 
 
 def test_moist_tape_matches_jax(moist_pair):
-    """Equal entry counts, shapes and decisions; a decision that differs
-    must be a tie of the port's own comparison.  Ties are printed, every
-    other mismatch is named in the failure."""
+    """Equal entry counts and stored bytes (packed decisions, compacted
+    indices); a decision that differs must be a tie of the port's own
+    comparison.  Ties are printed, every other mismatch is named in the
+    failure."""
     jtape = moist_pair["want"]["tape"]
     ptape = moist_pair["got"]["tape"]
     leaves = _entries(ptape, jtape, ("tape",), [])
     assert len(leaves) > 100
-    diffs = []
-    for path, p, j in leaves:
-        pp, jj = _decisions(p, j)
-        if (pp != jj).any():
-            diffs.append(path)
+    assert any(isinstance(p, freeze.Packed) for _, p, _ in leaves)
+    diffs = [path for path, p, j in leaves if _differing(p, j) is not None]
     if not diffs:
         return
     tape, ties = _tape_ties(moist_pair["model"], moist_pair["ltraj"])
@@ -531,8 +531,9 @@ def test_moist_tape_matches_jax(moist_pair):
             _entries(ties, jtape, ("tape",), [])):
         if path not in diffs:
             continue
-        pp, jj = _decisions(p, j)
-        diff = pp != jj
+        diff = _differing(p, j)
+        if diff is None:
+            continue
         tie = np.zeros_like(diff) if t is None else t
         n_tie += int((diff & tie).sum())
         if (diff & ~tie).any():

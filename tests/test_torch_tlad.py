@@ -200,7 +200,8 @@ def test_tape_replay_checks_length():
 
 def test_tape_replays_decisions_and_fscan_entries():
     """Replayed decisions are the recorded ones whatever the inputs; an
-    fscan records one entry holding its iterations' decisions."""
+    fscan records one entry holding its iterations' decisions, the
+    boolean ones packed a row per iteration."""
     xs = torch.tensor([[1.0, -1.0], [-2.0, 3.0], [0.5, 0.5]],
                       dtype=torch.float64)
 
@@ -211,12 +212,14 @@ def test_tape_replays_decisions_and_fscan_entries():
     with freeze.recording() as tape:
         c_rec, i_rec = freeze.fscan(body, torch.zeros(2, dtype=xs.dtype), xs)
     assert len(tape) == 1 and len(tape[0]) == 2
-    assert tape[0][0].shape == (3, 2) and tape[0][1].dtype == torch.uint8
+    assert isinstance(tape[0][0], freeze.Packed)
+    assert tape[0][0].data.shape == (3, 1) and tape[0][0].shape == (2,)
+    assert tape[0][1].dtype == torch.uint8
     with freeze.replaying(tape):
         c_rep, i_rep = freeze.fscan(body, torch.zeros(2, dtype=xs.dtype),
                                     -xs)
     assert torch.equal(i_rep, i_rec)
-    want = torch.where(tape[0][0], -xs, 0.0).sum(0)
+    want = torch.where(freeze.unpack_tape(tape)[0][0], -xs, 0.0).sum(0)
     assert torch.equal(c_rep, want)
 
 

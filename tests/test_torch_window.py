@@ -23,6 +23,7 @@ from fv3jedi_lm_tpu.config import LMConfig as JaxLMConfig
 from fv3jedi_lm_tpu.lm import LinearModel as JaxLinearModel
 from fv3jedi_lm_tpu_torch import debug, timing
 from fv3jedi_lm_tpu_torch.config import DynConfig, LMConfig
+from fv3jedi_lm_tpu_torch.core import freeze
 from fv3jedi_lm_tpu_torch.lm import LinearModel, traj_to_numpy
 
 torch.set_num_threads(1)
@@ -182,7 +183,8 @@ def test_step_nl_checks_its_state(monkeypatch):
 
 def test_tape_report_on_lm():
     """tests/test_debug.py's case, and the report's bytes are those of the
-    cached checkpoints and tapes counted tensor by tensor."""
+    cached checkpoints and tapes counted tensor by tensor, the tapes split
+    into packed boolean decisions and integer decisions."""
     cfg = LMConfig(dyn=DynConfig(npx=9, npy=9, npz=4, n_split=1, k_split=1,
                                  d2_bg_k1=0.2, d2_bg_k2=0.1, n_sponge=2),
                    dt=300.0)
@@ -193,7 +195,7 @@ def test_tape_report_on_lm():
     assert "1 cached traj" in rep and "ckpts" in rep and "tapes" in rep
     (_, (cks, tapes, mpack, _)), = lm._traj_cache.values()
 
-    def nbytes(tree):
+    def nbytes(tree, want):
         seen = {}
 
         def walk(x):
@@ -203,14 +205,23 @@ def test_tape_report_on_lm():
             elif isinstance(x, (list, tuple)):
                 for y in x:
                     walk(y)
-            elif isinstance(x, torch.Tensor):
-                seen[id(x)] = x.numel() * x.element_size()
+            elif isinstance(x, freeze.Packed):
+                seen[id(x.data)] = (True, x.data.numel())
+            elif isinstance(x, torch.Tensor) and id(x) not in seen:
+                seen[id(x)] = (x.dtype == torch.bool,
+                               x.numel() * x.element_size())
         walk(tree)
-        return sum(seen.values())
+        return sum(n for kind, n in seen.values() if want(kind))
 
-    assert debug.cache_bytes(lm) == [(nbytes(cks), nbytes(tapes), 0)]
-    assert nbytes(cks) > 0 and nbytes(tapes) > 0 and mpack is None
-    assert f"{nbytes(cks) / 1e6:9.1f} MB" in rep
+    everything = lambda kind: True
+    n_bool = nbytes(tapes, lambda kind: kind)
+    n_int = nbytes(tapes, lambda kind: not kind)
+    assert debug.cache_bytes(lm) == [(nbytes(cks, everything), n_bool, n_int,
+                                      0, 0, 0, 0)]
+    assert debug.tree_bytes(tapes) == n_bool + n_int
+    assert n_bool > 0 and mpack is None
+    assert f"{nbytes(cks, everything) / 1e6:9.1f} MB" in rep
+    assert f"bool {n_bool / 1e6:9.1f} MB int {n_int / 1e6:9.1f} MB" in rep
 
 
 # ----------------------------------------------------------------- timing --
