@@ -26,7 +26,16 @@ the GPU against the CPU at c12L10 float64 (step_nl, step_tl, step_ad,
 the identity; the nonhydrostatic beta case launches SIM1), and the
 4D-Var window (run_nl, run_tl, run_ad) at c96L72 float32 with the
 options FV3 configurations commonly turn on, with and without the
-saveltraj cache and the host timers' table.  Each c96L72 phase prints
+saveltraj cache and the host timers' table.  Then the face
+decomposition (fv3jedi_lm_tpu_torch/parallel/faces.py): six ranks, one
+cube face each, sharing the card over gloo (NCCL needs one GPU per
+rank): each cross-face exchange and g_sum against one process at c12,
+step_nl, step_tl and step_ad at c12L10 float64 (hydrostatic and
+nonhydrostatic, SIM1 launched on every nonhydrostatic rank) against one
+process on the card and on the CPU, and the c96L72 hydrostatic pair on
+six ranks against the single process's pair on the same inputs, timed,
+with each rank's exchanges, bytes, peak memory and SIM1 launches (none,
+hydrostatic).  Each c96L72 phase prints
 the bytes of its cached trajectories (checkpoints, bool tapes, integer
 tapes) and, once its model is dropped, checks that the device memory
 came back (no cyclic collection is run).  Each phase raises on failure.
@@ -387,12 +396,24 @@ def spun_up(lm, nsteps, moist):
     return tr
 
 
+def _draw(lm, rng, shape):
+    """rng.standard_normal over the whole cube for a field of `lm` of
+    `shape`: on a rank of a face decomposition the numbers of the six
+    faces are drawn, as one process draws them, and its own face kept."""
+    if lm.faces is None:
+        return rng.standard_normal(tuple(shape))
+    from fv3jedi_lm_tpu_torch.parallel.faces import WORLD, split_faces
+
+    whole = (shape[0], WORLD) + tuple(shape[2:])
+    return split_faces({"x": rng.standard_normal(whole)}, lm.faces.face)["x"]
+
+
 def rand_pert(lm, seed):
-    """tests/test_lm.py `_rand_pert` on the port: the same numbers."""
+    """tests/test_lm.py `_rand_pert` on the port: the same numbers (on a
+    rank of a face decomposition, its face of them)."""
     rng = np.random.default_rng(seed)
-    return {k: torch.as_tensor(rng.standard_normal(tuple(v.shape))
-                               * PERT_SCALE[k], dtype=lm.dtype,
-                               device=lm.device)
+    return {k: torch.as_tensor(_draw(lm, rng, v.shape) * PERT_SCALE[k],
+                               dtype=lm.dtype, device=lm.device)
             for k, v in lm.zero_pert().items()}
 
 
@@ -416,10 +437,10 @@ def tlad_traj(kw):
 def tlad_devices(kw, devices=("cuda", "cpu"), traj=None):
     """step_tl(traj, rand_pert(1)) and step_ad(traj, rand_pert(2)) at the
     c12L10 configuration `kw` (float64), from one trajectory spun up on
-    the CPU (`traj`, else tlad_traj(kw)), on each device.  Returns
-    {device: dict(tl, ad (numpy), dot (the identity's relative error),
-    fwd_launches (SIM1 kernel launches of `forward`), mixed_launches (of
-    record, TL and AD))}."""
+    the CPU (`traj`, else tlad_traj(kw)), on each device, then
+    step_nl(traj).  Returns {device: dict(nl, tl, ad (numpy), dot (the
+    identity's relative error), fwd_launches (SIM1 kernel launches of
+    `forward`), mixed_launches (of record, TL and AD))}."""
     from fv3jedi_lm_tpu_torch.config import DynConfig, LMConfig
     from fv3jedi_lm_tpu_torch.lm import (LinearModel, traj_from_numpy,
                                          traj_to_numpy)
@@ -451,7 +472,9 @@ def tlad_devices(kw, devices=("cuda", "cpu"), traj=None):
         mixed = sim1_solver_cuda.launches
         lhs = dot(mdx, dy, lm.prog_3d)
         rhs = dot(dx, mtdy, lm.prog_3d)
-        out[dev] = dict(tl=traj_to_numpy(mdx), ad=traj_to_numpy(mtdy),
+        nl = lm.step_nl(tr)
+        out[dev] = dict(nl=traj_to_numpy({k: nl[k] for k in lm.prog_3d}),
+                        tl=traj_to_numpy(mdx), ad=traj_to_numpy(mtdy),
                         dot=abs(lhs - rhs) / max(abs(lhs), 1e-300),
                         fwd_launches=fwd[0], mixed_launches=mixed)
     return out
@@ -581,7 +604,7 @@ class CpuReferences:
         self._jobs[key] = self._pool.submit(fn, *args)
 
     def get(self, key):
-        return self._jobs.pop(key).result()
+        return self._jobs[key].result()
 
     def wait(self):
         from concurrent.futures import wait
@@ -845,11 +868,14 @@ def phase_tlad_small(refs):
     1e-10 relative norm, the dot-product identity below 1e-12 on the card,
     and SIM1 by mode: the trajectory substeps of `forward` launch the
     kernel (2 per substep, nonhydrostatic), the differentiated stages
-    never do."""
+    never do.  Returns {mode: (trajectory, tlad_devices' results on the
+    card and the CPU)}."""
+    out = {}
     for name, kw in TLAD_SMALL.items():
         traj, cpu = refs.get(("tlad", name))
         res = tlad_devices(kw, ("cuda",), traj)
         res["cpu"] = cpu
+        out[name] = (traj, res)
         n_split = kw["n_split"]
         for sweep in ("tl", "ad"):
             worst = 0.0
@@ -881,18 +907,19 @@ def phase_tlad_small(refs):
                 f"tlad small {name}: SIM1 launches forward "
                 f"{res['cuda']['fwd_launches']} (want {want_fwd}), mixed "
                 f"{res['cuda']['mixed_launches']} (want 0)")
+    return out
 
 
 def _bench_case(lm):
     """bench.py's trajectory and perturbation (bench.py:182-188, seed 0):
-    rest plus 2 K of white noise on t, and a 1e-3 white-noise pert."""
+    rest plus 2 K of white noise on t, and a 1e-3 white-noise pert (on a
+    rank of a face decomposition, its face of them)."""
     traj = lm.rest_traj()
     rng = np.random.default_rng(0)
-    noise = 2.0 * rng.standard_normal(tuple(traj["t"].shape)).astype(
-        np.float32)
+    noise = 2.0 * _draw(lm, rng, traj["t"].shape).astype(np.float32)
     traj["t"] = traj["t"] + torch.as_tensor(noise, device=lm.device)
     pert = {k: torch.as_tensor(
-        (1e-3 * rng.standard_normal(tuple(v.shape))).astype(np.float32),
+        (1e-3 * _draw(lm, rng, v.shape)).astype(np.float32),
         device=lm.device) for k, v in lm.zero_pert().items()}
     return traj, pert
 
@@ -902,9 +929,10 @@ def phase_tlad_full(card, pairs=4):
     one first pair of step_tl + step_ad(traj, tl) (with the trajectory's
     forward and record, timed on their own), then `pairs` timed pairs,
     each ending in torch.cuda.synchronize() (bench.py:199-209).  Returns
-    (lm, traj, pert, best pair seconds, SIM1 launches of the run)."""
+    (lm, traj, pert, best pair seconds, SIM1 launches of the run, the last
+    pair's tl and ad on the host as numpy)."""
     from fv3jedi_lm_tpu_torch.config import DynConfig, LMConfig
-    from fv3jedi_lm_tpu_torch.lm import LinearModel
+    from fv3jedi_lm_tpu_torch.lm import LinearModel, traj_to_numpy
     from fv3jedi_lm_tpu_torch.ops.cuda_sim1 import sim1_solver_cuda
 
     cfg = LMConfig(dyn=DynConfig(**TLAD_FULL_KW), dt=FULL_DT)
@@ -971,7 +999,8 @@ def phase_tlad_full(card, pairs=4):
     if launches != 0:
         raise AssertionError(f"tlad full: {launches} SIM1 launches on the "
                              "hydrostatic path")
-    return lm, traj, pert, best, launches
+    ref = dict(tl=traj_to_numpy(tl), ad=traj_to_numpy(ad))
+    return lm, traj, pert, best, launches, ref
 
 
 #: the profile scopes of the TL/AD sweeps (core/staged.py) and of the
@@ -1495,6 +1524,426 @@ def phase_window_full(card, nt=WINDOW_NT):
     return launches
 
 
+# ---- the face decomposition: one cube face per rank (parallel/faces.py)
+
+#: the transport of the card's six ranks, and why
+FACES_BACKEND = "gloo"
+FACES_WHY = "gloo: 6 ranks share one GPU; NCCL needs one GPU per rank"
+#: the c96L72 float32 pair on six ranks against one process: each field's
+#: relative L2 difference (the TL came out bitwise and the AD within
+#: 1.1e-7 on the H100, the AD's index_add summing in another order; a
+#: float32 tape recorded per rank could also differ at a tie)
+FACES_FULL_TOL = 1e-5
+#: the cross-face entries of parallel/halo.py: (function, the staggers of
+#: its fields ("c" a cell-center dimension, "b" a B-grid one, (y, x)),
+#: levels (None: a 2-D field))
+HALO_CASES = {
+    "center": ("fill_halo_center", ("cc",), 4),
+    "center_2d": ("fill_halo_center", ("cc",), None),
+    "corner": ("fill_halo_corner", ("bb",), 4),
+    "dgrid": ("fill_halo_dgrid", ("bc", "cb"), 4),
+    "cgrid": ("fill_halo_cgrid", ("cb", "bc"), 4),
+    "cgrid_scalar_pair": ("fill_halo_cgrid_scalar_pair", ("cb", "bc"), 4),
+    "dgrid_scalar_pair": ("fill_halo_dgrid_scalar_pair", ("bc", "cb"), 4),
+    "fix_shared_edges_dgrid": ("fix_shared_edges_dgrid", ("bc", "cb"), 3),
+}
+
+
+def halo_inputs(npx, seed):
+    """For each case of HALO_CASES, whole-cube float64 (inputs, tangents,
+    cotangents), each a list with one array per field; then "g_sum": a
+    (6, n, n) field, a positive area, a tangent."""
+    from fv3jedi_lm_tpu_torch import NG
+
+    n = npx - 1
+    dims = {"c": n + 2 * NG, "b": n + 1 + 2 * NG}
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, (_, stags, nlev) in HALO_CASES.items():
+        shapes = [((nlev,) if nlev else ()) + (6, dims[s[0]], dims[s[1]])
+                  for s in stags]
+        out[name] = [[rng.standard_normal(sh) for sh in shapes]
+                     for _ in range(3)]
+    out["g_sum"] = [rng.standard_normal((6, n, n)),
+                    1.0 + rng.random((6, n, n)),
+                    rng.standard_normal((6, n, n))]
+    return out
+
+
+def halo_results(topo, inputs, device, faces=None):
+    """Each cross-face entry of parallel/halo.py on `topo` at
+    halo_inputs' numbers: its outputs ("<case>/fwd/<i>"), the jvp of the
+    tangents ("/jvp/") and the vjp of the cotangents ("/vjp/"); then
+    g_sum in modes 0 and 1, its value, jvp and gradient (of a cotangent
+    1 given on one rank: each rank holds the sum, and its cotangent is
+    the ranks' summed).  On one process `topo` is the CubeTopology; on a
+    rank of a face decomposition it is the rank's FaceTopology, `faces`
+    its FaceGroup, and each whole-cube input is cut to the rank's face.
+    Numpy arrays of the rank's faces, floats for the sums."""
+    from fv3jedi_lm_tpu_torch.ops.reductions import g_sum, global_area
+    from fv3jedi_lm_tpu_torch.parallel import halo
+    from fv3jedi_lm_tpu_torch.parallel.faces import split_faces
+
+    def own(a):
+        a = a if faces is None else split_faces({"x": a}, faces.face)["x"]
+        return torch.as_tensor(a, device=device)
+
+    res = {}
+    for name, (fn, _, _) in HALO_CASES.items():
+        def f(*xs, fn=fn):
+            out = getattr(halo, fn)(*xs, topo)
+            return tuple(out) if isinstance(out, tuple) else (out,)
+
+        xs, ts, ws = ([own(a) for a in group] for group in inputs[name])
+        outs = f(*xs)
+        tans = torch.func.jvp(f, tuple(xs), tuple(ts))[1]
+        xg = [x.clone().requires_grad_() for x in xs]
+        cots = torch.autograd.grad(f(*xg), xg, ws)
+        for tag, vals in (("fwd", outs), ("jvp", tans), ("vjp", cots)):
+            for i, v in enumerate(vals):
+                res[f"{name}/{tag}/{i}"] = v.detach().cpu().numpy()
+    p, area, t = (own(a) for a in inputs["g_sum"])
+    # the sum's cotangent 1, given once: on one rank of a decomposition
+    seed = torch.tensor(float(faces is None or faces.face == 0),
+                        dtype=p.dtype, device=device)
+    total = global_area(area, faces=faces)     # mode 1's divisor, once
+    for mode in (0, 1):
+        def gs(x, mode=mode):
+            return g_sum(x, area, mode, faces=faces, total=total)
+
+        res[f"g_sum/{mode}/value"] = float(gs(p))
+        res[f"g_sum/{mode}/jvp"] = float(torch.func.jvp(gs, (p,), (t,))[1])
+        pg = p.clone().requires_grad_()
+        res[f"g_sum/{mode}/grad"] = torch.autograd.grad(
+            gs(pg), pg, seed)[0].cpu().numpy()
+    return res
+
+
+def faces_halos(faces, npx, seed):
+    """A rank's halo_results at (npx, seed) on its FaceTopology, and
+    parallel/ppermute's exchange of the center cases ("ppermute/<case>");
+    with the rank's exchange count."""
+    from fv3jedi_lm_tpu_torch.grid.topology import get_topology
+    from fv3jedi_lm_tpu_torch.parallel.faces import FaceTopology, split_faces
+    from fv3jedi_lm_tpu_torch.parallel.ppermute import (
+        fill_halo_center_ppermute)
+
+    topo = FaceTopology(get_topology(npx), faces)
+    inputs = halo_inputs(npx, seed)
+    res = halo_results(topo, inputs, faces.device, faces)
+    for name in ("center", "center_2d"):
+        q = split_faces({"x": inputs[name][0][0]}, faces.face)["x"]
+        res[f"ppermute/{name}"] = fill_halo_center_ppermute(
+            torch.as_tensor(q, device=faces.device), topo, faces
+        ).cpu().numpy()
+    res["exchanges"] = faces.exchanges
+    return res
+
+
+def join_results(parts):
+    """The six ranks' result dicts with their arrays joined over the
+    faces (parallel/faces.join_faces) and their other values (sums over
+    the ranks, counts) from rank 0."""
+    from fv3jedi_lm_tpu_torch.parallel.faces import join_faces
+
+    arrays = [{k: v for k, v in p.items() if isinstance(v, np.ndarray)}
+              for p in parts]
+    out = join_faces(arrays)
+    for k, v in parts[0].items():
+        if not isinstance(v, np.ndarray):
+            out[k] = v
+    return out
+
+
+def faces_steps(faces, cases):
+    """One rank of a face decomposition of LinearModel, for each case
+    (kw, dt, traj, dx, dy) of `cases`: a model at DynConfig(**kw), dt, on
+    its face of the whole-cube numpy `traj`, `dx`, `dy`, then
+    step_nl(traj), step_tl(traj, dx), step_ad(traj, dy).  Returns for each
+    case its face's outputs (numpy), <tl, dy> and <dx, ad> summed over
+    the ranks, its SIM1 launches and its exchanges."""
+    from fv3jedi_lm_tpu_torch.config import DynConfig, LMConfig
+    from fv3jedi_lm_tpu_torch.lm import LinearModel, traj_from_numpy
+    from fv3jedi_lm_tpu_torch.ops.cuda_sim1 import sim1_solver_cuda
+    from fv3jedi_lm_tpu_torch.parallel.faces import split_faces
+
+    out = []
+    for kw, dt, traj, dx, dy in cases:
+        lm = LinearModel.create(LMConfig(dyn=DynConfig(**kw), dt=dt),
+                                device=faces.device, faces=faces)
+        tr, p, q = (traj_from_numpy(lm, split_faces(d, faces.face))
+                    for d in (traj, dx, dy))
+        sim1_solver_cuda.launches = 0
+        faces.reset_counters()
+        nl = lm.step_nl(tr)
+        tl = lm.step_tl(tr, p)
+        ad = lm.step_ad(tr, q)
+        keys = lm.prog_3d
+        out.append(dict(
+            {f"{what}/{k}": d[k].detach().cpu().numpy()
+             for what, d in (("nl", nl), ("tl", tl), ("ad", ad))
+             for k in keys},
+            lhs=faces.all_sum(dot(tl, q, keys)),
+            rhs=faces.all_sum(dot(p, ad, keys)),
+            launches=sim1_solver_cuda.launches, exchanges=faces.exchanges))
+    return out
+
+
+def perts_numpy(kw, seeds=(1, 2)):
+    """rand_pert at `seeds` for the configuration `kw`, whole cube, numpy
+    (from a model on the CPU)."""
+    from fv3jedi_lm_tpu_torch.config import DynConfig, LMConfig
+    from fv3jedi_lm_tpu_torch.lm import LinearModel, traj_to_numpy
+
+    lm = LinearModel.create(LMConfig(dyn=DynConfig(**kw), dt=450.0),
+                            device="cpu")
+    return [traj_to_numpy(rand_pert(lm, s)) for s in seeds]
+
+
+def _rel(got, want):
+    """|got - want| / |want| in the L2 norm, in float64."""
+    got, want = (np.asarray(a, np.float64) for a in (got, want))
+    return float(np.linalg.norm(got - want)
+                 / max(np.linalg.norm(want), 1e-300))
+
+
+def phase_faces_small(card, small):
+    """Six ranks on the card (gloo), one face each, at c12L10 float64:
+    each cross-face exchange, with its jvp, and g_sum bitwise equal to
+    the single process on the card (the vjp, whose sums may add in
+    another order, to 1e-14 relative, and the adjoint identity of the
+    exchanges to 1e-14); then step_nl, step_tl and step_ad, hydrostatic
+    and nonhydrostatic, on phase_tlad_small's trajectories (`small`, its
+    results): within 1e-12 relative of one process on the card and
+    within phase_tlad_small's 1e-10 of the CPU port (the card's float64
+    exp, log and SIM1 kernel differ from the CPU's in the last bits),
+    with the dot-product identity over the ranks below 1e-12 and,
+    nonhydrostatic, SIM1 launched on every rank.  Returns the SIM1
+    launches of each NH rank."""
+    from fv3jedi_lm_tpu_torch.grid.topology import get_topology
+    from fv3jedi_lm_tpu_torch.parallel.faces import run_faces
+
+    print(f"[faces_small] {FACES_WHY}", flush=True)
+    npx = TLAD_SMALL["hydrostatic"]["npx"]
+    want = halo_results(get_topology(npx), halo_inputs(npx, 7), "cuda")
+    parts = run_faces(faces_halos, npx, 7, backend=FACES_BACKEND,
+                      device="cuda", timeout=300.0)
+    got = join_results(parts)
+    check_halos(got, want, halo_inputs(npx, 7), "faces_small")
+    print(f"[faces_small] c12: {len(HALO_CASES)} cross-face exchanges, "
+          "their jvp, ppermute's center exchange and g_sum bitwise equal to "
+          "one process on the card; vjp and the adjoint identity within "
+          f"1e-14; {parts[0]['exchanges']} exchanges a rank ({card[0]}; "
+          f"{card[1]})", flush=True)
+    launches = None
+    cases = [(kw, 450.0, small[name][0], *perts_numpy(kw))
+             for name, kw in TLAD_SMALL.items()]
+    results = run_faces(faces_steps, cases, backend=FACES_BACKEND,
+                        device="cuda", timeout=300.0)
+    for i, (name, kw) in enumerate(TLAD_SMALL.items()):
+        parts = [r[i] for r in results]
+        got = join_results(parts)
+        one = small[name][1]
+        worst = check_steps(got, one["cuda"], f"faces_small {name}", 1e-12)
+        worst_cpu = check_steps(got, one["cpu"], f"faces_small {name} (CPU)",
+                                1e-10)
+        rel = abs(got["lhs"] - got["rhs"]) / max(abs(got["lhs"]), 1e-300)
+        ranks = [p["launches"] for p in parts]
+        print(f"[faces_small] {name}: max over fields of |faces-one|/|one| "
+              "against one process on the card "
+              + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+              + ", on the CPU "
+              + ", ".join(f"{k} {v:.3e}" for k, v in worst_cpu.items())
+              + f"; dot-product identity over the ranks {rel:.3e}; "
+              f"exchanges a rank {parts[0]['exchanges']}; SIM1 launches by "
+              f"rank {ranks}", flush=True)
+        if not rel < 1e-12:
+            raise AssertionError(f"faces_small {name}: dot-product identity "
+                                 f"{rel} >= 1e-12")
+        if not kw.get("hydrostatic", True):
+            if not all(n > 0 for n in ranks):
+                raise AssertionError(f"faces_small {name}: SIM1 launches by "
+                                     f"rank {ranks}, want > 0 on every rank")
+            launches = ranks
+    return launches
+
+
+def check_halos(got, want, inputs, tag):
+    """faces_halos' joined results against halo_results' single-process
+    ones: outputs, jvps, ppermute and g_sum's value, jvp and gradient
+    bitwise; vjps to 1e-14 relative; <E t, w> == <t, E^T w> to 1e-14."""
+    for k, w in want.items():
+        g = got[k]
+        if "/vjp/" in k:
+            if not _rel(g, w) <= 1e-14:
+                raise AssertionError(f"{tag} {k}: |faces-one|/|one| = "
+                                     f"{_rel(g, w)} > 1e-14")
+        elif not np.array_equal(g, w):
+            raise AssertionError(f"{tag} {k}: not bitwise equal to one "
+                                 "process")
+    for name in ("center", "center_2d"):
+        if not np.array_equal(got[f"ppermute/{name}"], want[f"{name}/fwd/0"]):
+            raise AssertionError(f"{tag} ppermute {name}: not bitwise equal "
+                                 "to fill_halo_center")
+    for name in HALO_CASES:
+        _, ts, ws = inputs[name]
+        n = len(ts)
+        lhs = sum(float(np.vdot(got[f"{name}/jvp/{i}"], ws[i]))
+                  for i in range(n))
+        rhs = sum(float(np.vdot(ts[i], got[f"{name}/vjp/{i}"]))
+                  for i in range(n))
+        if not abs(lhs - rhs) <= 1e-14 * abs(lhs):
+            raise AssertionError(f"{tag} {name}: <E t, w> {lhs} != "
+                                 f"<t, E^T w> {rhs}")
+
+
+def check_steps(got, want, tag, tol):
+    """faces_steps' joined results against one process's (dicts nl, tl,
+    ad of numpy fields): every field finite and within `tol` relative in
+    norm.  Returns the worst relative difference of each sweep."""
+    worst = {}
+    for what in ("nl", "tl", "ad"):
+        worst[what] = 0.0
+        for k, w in want[what].items():
+            g = got[f"{what}/{k}"]
+            if not np.isfinite(g).all():
+                raise AssertionError(f"{tag} {what} {k}: not finite")
+            r = _rel(g, w)
+            worst[what] = max(worst[what], r)
+            if not r <= tol:
+                raise AssertionError(f"{tag} {what} {k}: |faces-one|/|one| "
+                                     f"= {r} > {tol}")
+    return worst
+
+
+def faces_full_pair(faces, pairs, card):
+    """One rank of the c96L72 hydrostatic float32 pair (TLAD_FULL_KW,
+    _bench_case's inputs): a first pair (forward and record timed apart),
+    then `pairs` warm pairs, each timed to a synchronize of this rank
+    and then to a barrier of all (the slowest rank's time); the rank's
+    peak memory, exchanges, bytes and host seconds inside exchanges per
+    warm pair; its SIM1 launches over all the pairs (0: hydrostatic); its
+    face of the last pair's tl and ad (numpy).  After the model is
+    dropped its device memory must come back (memory_returned)."""
+    from fv3jedi_lm_tpu_torch.config import DynConfig, LMConfig
+    from fv3jedi_lm_tpu_torch.lm import LinearModel, traj_to_numpy
+    from fv3jedi_lm_tpu_torch.ops.cuda_sim1 import sim1_solver_cuda
+
+    cfg = LMConfig(dyn=DynConfig(**TLAD_FULL_KW), dt=FULL_DT)
+    before = _allocated()
+    torch.cuda.reset_peak_memory_stats()
+    lm = LinearModel.create(cfg, device=faces.device, faces=faces)
+    traj, pert = _bench_case(lm)
+    stepper = lm._staged()
+    parts = {}
+
+    def timed(name, fn):
+        def run(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            parts[name] = time.perf_counter() - t0
+            return out
+        return run
+
+    stepper.forward = timed("forward", stepper.forward)
+    stepper.record = timed("record", stepper.record)
+
+    def pair():
+        faces.barrier()
+        faces.reset_counters()
+        t0 = time.perf_counter()
+        tl = lm.step_tl(traj, pert)
+        ad = lm.step_ad(traj, tl)
+        torch.cuda.synchronize()
+        own = time.perf_counter() - t0
+        faces.barrier()
+        return tl, ad, dict(own=own, all=time.perf_counter() - t0,
+                            exchanges=faces.exchanges,
+                            bytes=faces.bytes_sent,
+                            exchange_s=faces.seconds)
+
+    sim1_solver_cuda.launches = 0
+    tl, ad, first = pair()
+    first.update(parts)
+    warm = []
+    for _ in range(pairs):
+        tl, ad, t = pair()
+        warm.append(t)
+    del stepper.forward, stepper.record
+    out = dict(first=first, warm=warm, peak=torch.cuda.max_memory_allocated(),
+               launches=sim1_solver_cuda.launches,
+               **{f"tl/{k}": v for k, v in traj_to_numpy(tl).items()},
+               **{f"ad/{k}": v for k, v in traj_to_numpy(ad).items()})
+    del lm, traj, pert, tl, ad, stepper
+    memory_returned(f"faces_full rank {faces.rank}", before, card)
+    return out
+
+
+def phase_faces_full(card, ref, pairs=3):
+    """Six ranks on the card (gloo), one face each, at c96L72 hydrostatic
+    float32 on _bench_case's inputs (faces_full_pair), against the single
+    process's last pair `ref` (phase_tlad_full's, on the same inputs):
+    every field finite, each field's relative L2 difference at most
+    FACES_FULL_TOL, no SIM1 launch on any rank (the path is
+    hydrostatic), and every rank's device memory back once its model is
+    dropped.  Returns the SIM1 launches by rank."""
+    from fv3jedi_lm_tpu_torch.parallel.faces import run_faces
+
+    print(f"[faces_full] {FACES_WHY}", flush=True)
+    parts = run_faces(faces_full_pair, pairs, card, backend=FACES_BACKEND,
+                      device="cuda", timeout=480.0)
+    got = join_results(parts)
+    tag = f"({card[0]}; {card[1]})"
+    first = [p["first"] for p in parts]
+    print("[faces_full] c96L72 hydrostatic f32, 6 ranks on one card: first "
+          f"pair {max(f['all'] for f in first):.4f} s (slowest rank; "
+          f"forward {max(f['forward'] for f in first):.4f} s, record "
+          f"{max(f['record'] for f in first):.4f} s) {tag}", flush=True)
+    for i in range(pairs):
+        w = [p["warm"][i] for p in parts]
+        print(f"[faces_full] warm pair {i + 1}: "
+              f"{max(x['all'] for x in w):.4f} s to the barrier (slowest "
+              "rank); by rank to its synchronize "
+              + ", ".join(f"{x['own']:.4f}" for x in w) + " s; exchanges "
+              f"a rank {w[0]['exchanges']}, MB sent by rank "
+              + ", ".join(f"{x['bytes'] / 1e6:.1f}" for x in w)
+              + "; host s inside exchanges by rank "
+              + ", ".join(f"{x['exchange_s']:.3f}" for x in w) + f" {tag}",
+              flush=True)
+    launches = [p["launches"] for p in parts]
+    print(f"[faces_full] SIM1 launches by rank {launches}", flush=True)
+    if any(launches):
+        raise AssertionError(f"faces_full: SIM1 launches by rank {launches} "
+                             "on the hydrostatic path, want 0")
+    print("[faces_full] peak device memory by rank "
+          + ", ".join(f"{p['peak'] / 2**30:.3f}" for p in parts)
+          + f" GiB, {sum(p['peak'] for p in parts) / 2**30:.3f} GiB in all "
+          f"{tag}", flush=True)
+    worst = 0.0
+    for what in ("tl", "ad"):
+        for k, w in ref[what].items():
+            g = got[f"{what}/{k}"]
+            if not np.isfinite(g).all():
+                raise AssertionError(f"faces_full {what} {k}: not finite")
+            r = _rel(g, w)
+            scale = max(float(np.abs(w).max()), 1e-30)
+            d = np.abs(g.astype(np.float64) - w)
+            lanes = int((d > 1e-3 * scale).sum())
+            print(f"[faces_full] {what} {k}: |faces-one|/|one| {r:.3e}, "
+                  f"max|faces-one|/max|one| {float(d.max()) / scale:.3e}, "
+                  f"lanes over 1e-3 of max|one| {lanes} of {d.size}",
+                  flush=True)
+            worst = max(worst, r)
+            if not r <= FACES_FULL_TOL:
+                raise AssertionError(f"faces_full {what} {k}: |faces-one|"
+                                     f"/|one| = {r} > {FACES_FULL_TOL}")
+    print(f"[faces_full] worst field |faces-one|/|one| {worst:.3e} (gate "
+          f"{FACES_FULL_TOL})", flush=True)
+    return launches
+
+
 def run_phases(card, record, refs, elapsed):
     """The phases after the kernel's, in order; each model dropped must
     return its device memory.  Fills `record`'s launch counts."""
@@ -1505,13 +1954,13 @@ def run_phases(card, record, refs, elapsed):
     del lm, last
     memory_returned("NH step_nl", before, card)
     elapsed("NH step_nl")
-    phase_tlad_small(refs)
+    small = phase_tlad_small(refs)
     elapsed("tlad_small")
     refs.wait()     # no worker runs while the c96L72 phases are timed
     elapsed("CPU references")
     before = _allocated()
-    lm, traj, pert, best, record["launches_tlad_c96L72"] = phase_tlad_full(
-        card)
+    (lm, traj, pert, best, record["launches_tlad_c96L72"],
+     tlad_ref) = phase_tlad_full(card)
     phase_tlad_profile(lm, traj, pert, best)
     del lm, traj, pert
     memory_returned("tlad_full", before, card)
@@ -1531,6 +1980,11 @@ def run_phases(card, record, refs, elapsed):
     elapsed("options_small")
     record["launches_window_c96L72"] = phase_window_full(card)
     elapsed("window_full")
+    record["launches_faces_nh_by_rank"] = phase_faces_small(card, small)
+    elapsed("faces_small")
+    record["launches_faces_c96L72_by_rank"] = phase_faces_full(card,
+                                                               tlad_ref)
+    elapsed("faces_full")
 
 
 def main():

@@ -70,7 +70,7 @@ def total_energy_hydro(u, v, tv, delp, pe, peln, hs, grid, npx):
 
 
 def lagrangian_to_eulerian(state, vert, q, grid, cfg, ak, bk, akap, ptop,
-                           last_step, mode="traj"):
+                           last_step, mode="traj", faces=None):
     """Vertical remap back to the Eulerian hybrid coordinate
     (fv_mapz_nlm.F90:60-960, remap T in log p).  Nonhydrostatic, w is
     remapped with the surface ws as bottom condition and delz as specific
@@ -85,8 +85,9 @@ def lagrangian_to_eulerian(state, vert, q, grid, cfg, ak, bk, akap, ptop,
     (fv_mapz_tlm.F90:571-830), joined by `freeze.mix_primal`.  On the last
     step, with consv_te and the step-entry te0_2d in `state`, the
     temperature takes the global total-energy correction (fv_mapz_nlm.
-    F90:633-785), and the omega of `vert` is remapped.  Returns
-    (state, q, new vert)."""
+    F90:633-785; `faces`, the rank's FaceGroup on a face decomposition,
+    takes its global sum across the ranks), and the omega of `vert` is
+    remapped.  Returns (state, q, new vert)."""
     pe, peln, pkz = vert["pe"], vert["peln"], vert["pkz"]
     pt, delp = state["pt"], state["delp"]
     u, v = state["u"], state["v"]
@@ -198,8 +199,9 @@ def lagrangian_to_eulerian(state, vert, q, grid, cfg, ak, bk, akap, ptop,
             zsum1 = (pkz_new_c * delp_new_c).sum(0)
             zsum0 = ptop * (pk2_c[0] - pk2_c[-1]) + zsum1
             area_c = grid["area"][..., cs, cs]
-            tpe = cfg.consv_te * g_sum(state["te0_2d"] - te_new, area_c)
-            dtmp = tpe / (CP_AIR * g_sum(zsum0, area_c))
+            tpe = cfg.consv_te * g_sum(state["te0_2d"] - te_new, area_c,
+                                       faces=faces)
+            dtmp = tpe / (CP_AIR * g_sum(zsum0, area_c, faces=faces))
         # virtual T -> T (fv_mapz_nlm.F90:857-892)
         pt_c = (pt_c + dtmp * pkz_new_c) / (1.0 + ZVIR * qs[0])
     else:
@@ -363,7 +365,7 @@ def post_acoustic_stage(state, carry, q, dp1, grid, topo, cfg, ak, bk,
         with scope("remap"):
             state, q, vert = lagrangian_to_eulerian(
                 state, vert, q, grid, cfg, ak, bk, KAPPA, ptop, last_step,
-                mode=mode)
+                mode=mode, faces=getattr(topo, "faces", None))
     if last_step:
         state = rayleigh(state, grid, topo, cfg, mdt * cfg.k_split, pm, ptop)
     return state, q
@@ -507,7 +509,8 @@ def fv_dynamics(state, q, grid, topo, cfg, bdt, ak, bk, ptop):
         if npz > 4:
             with scope("remap"):
                 state, q, vert = lagrangian_to_eulerian(
-                    state, vert, q, grid, cfg, ak_t, bk_t, KAPPA, ptop, last)
+                    state, vert, q, grid, cfg, ak_t, bk_t, KAPPA, ptop, last,
+                    faces=getattr(topo, "faces", None))
     if "omga" in state and cfg.nf_omega > 0:
         # omega filtered for the physics (fv_dynamics_nlm.F90:627-629)
         state["omga"] = del2_cubed(state["omga"], 0.18 * grid["da_min"],

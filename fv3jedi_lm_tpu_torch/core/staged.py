@@ -138,6 +138,7 @@ class StagedStepper:
         self.npz = dyn.npz
         self._nx = dyn.nx
         self._zeros = zeros = marshal.zeros
+        self._nf = nf = marshal.nf
         dtype, device = marshal.dtype, marshal.device
         mdt = cfg.dt / dyn.k_split
         ak = torch.as_tensor(ak_np, dtype=dtype, device=device)
@@ -174,7 +175,7 @@ class StagedStepper:
             bs = slice(NG, NG + n + 1)
 
             def z3(jy, jx, sy, sx, x):
-                out = zeros(npz, 6, jy, jx)
+                out = zeros(npz, nf, jy, jx)
                 out[:, :, sy, sx] = x
                 return out
 
@@ -220,14 +221,15 @@ class StagedStepper:
         jc = n + 2 * NG
         jb = jc + 1
         npz = self.npz
+        nf = self._nf
         shapes = dict(
-            pe=(npz + 1, 6, jc, jc), peln=(npz + 1, 6, jc, jc),
-            pk=(npz + 1, 6, jc, jc), pkz=(npz, 6, jc, jc),
-            uc=(npz, 6, jc, jb), vc=(npz, 6, jb, jc),
-            divgd=(npz, 6, jb, jb), w=(npz, 6, jc, jc),
-            mfx=(npz, 6, n, n + 1), mfy=(npz, 6, n + 1, n),
-            cx=(npz, 6, jc, n + 1), cy=(npz, 6, n + 1, jc),
-            heat_source=(npz, 6, n, n),
+            pe=(npz + 1, nf, jc, jc), peln=(npz + 1, nf, jc, jc),
+            pk=(npz + 1, nf, jc, jc), pkz=(npz, nf, jc, jc),
+            uc=(npz, nf, jc, jb), vc=(npz, nf, jb, jc),
+            divgd=(npz, nf, jb, jb), w=(npz, nf, jc, jc),
+            mfx=(npz, nf, n, n + 1), mfy=(npz, nf, n + 1, n),
+            cx=(npz, nf, jc, n + 1), cy=(npz, nf, n + 1, jc),
+            heat_source=(npz, nf, n, n),
         )
         full = dict(c)
         for k in self._prune:

@@ -41,6 +41,7 @@ from .grid.metrics import build_grid
 from .core.fv_dynamics import fv_dynamics
 from .grid.device import to_device
 from .parallel import halo
+from .parallel.faces import FaceTopology, slice_grid
 from .timing import scope
 
 TRACERS = ("qv", "ql", "qi", "o3")  # ncnst=4 (fv3jedi_lm_dynamics_mod.F90:159-167)
@@ -59,14 +60,16 @@ _DTYPES = {"float64": torch.float64, "float32": torch.float32}
 
 class Marshal:
     """Compute-domain dicts to and from the padded internal state (halo NG)
-    of one model's configuration, dtype and device."""
+    of one model's configuration, dtype and device, over its `nf` faces
+    (6, or 1 on a rank of a face decomposition)."""
 
-    def __init__(self, dyn, dtype, device, topo, tracers):
+    def __init__(self, dyn, dtype, device, topo, tracers, nf):
         self.dyn = dyn
         self.dtype = dtype
         self.device = device
         self.topo = topo
         self.tracers = tracers
+        self.nf = nf
 
     def zeros(self, *shape):
         return torch.zeros(shape, dtype=self.dtype, device=self.device)
@@ -84,7 +87,7 @@ class Marshal:
         bs = slice(NG, NG + n + 1)
 
         def pad3(x, jy, jx, sy, sx):
-            out = self.zeros(npz, 6, jy, jx)
+            out = self.zeros(npz, self.nf, jy, jx)
             out[:, :, sy, sx] = x.to(self.dtype)
             return out
 
@@ -99,7 +102,7 @@ class Marshal:
             st["w"] = pad3(prog["w"], jc, jc, cs, cs)
             st["delz"] = pad3(prog["delz"], jc, jc, cs, cs)
         else:
-            st["w"] = self.zeros(npz, 6, jc, jc)
+            st["w"] = self.zeros(npz, self.nf, jc, jc)
         q = [pad3(prog[name], jc, jc, cs, cs) for name in self.tracers]
         return st, q
 
@@ -126,7 +129,7 @@ class Marshal:
     def pad_phis(self, phis):
         n = self.dyn.nx
         jc = n + 2 * NG
-        phis_p = self.zeros(6, jc, jc)
+        phis_p = self.zeros(self.nf, jc, jc)
         phis_p[:, NG:NG + n, NG:NG + n] = phis.to(self.dtype)
         return halo.fill_halo_center(phis_p, self.topo)
 
@@ -134,11 +137,24 @@ class Marshal:
 class LinearModel:
     """Facade object: `create` once per (resolution, config, device), then
     step.  The grid lives on `device`, the GPU unless the caller passes
-    `device="cpu"`; every state passed in must live there too."""
+    `device="cpu"`; every state passed in must live there too.  With
+    `faces` (a parallel/faces.FaceGroup) the model is one rank of a face
+    decomposition: it holds its face's grid, its states are that face's
+    (npz, 1, ...) fields (`parallel.faces.split_faces`), and its halos
+    and global sums are exchanged with the other five ranks."""
 
     def __init__(self, cfg: LMConfig, device="cuda", ak=None, bk=None,
-                 big=None):
+                 big=None, faces=None):
         device = torch.device(device)
+        if faces is not None:
+            if device.type != faces.device.type:
+                raise ValueError(f"a model on {device} with a face group on "
+                                 f"{faces.device}")
+            device = faces.device
+            if cfg.do_phy_trb or cfg.do_phy_mst:
+                raise NotImplementedError(
+                    "the physics on a face decomposition is not ported "
+                    "(ROADMAP Queue 1 item 9)")
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "LinearModel runs on the GPU by default and this host has no "
@@ -159,8 +175,13 @@ class LinearModel:
             # discarded lanes must stay finite in the working dtype
             big = 1.0e30 if self.dtype == torch.float64 else 1.0e8
         gm = build_grid(dyn.npx, big=big)
+        self.faces = faces
+        self.nf = 6 if faces is None else 1
         self.topo = gm.topo
         self.grid = to_device(gm, self.dtype, self.device)
+        if faces is not None:
+            self.topo = FaceTopology(gm.topo, faces)
+            self.grid = slice_grid(self.grid, faces.face)
         if ak is None:
             ak, bk = default_ak_bk(dyn.npz, ptop=dyn.ptop)
         np_dtype = np.float64 if self.dtype == torch.float64 else np.float32
@@ -172,7 +193,7 @@ class LinearModel:
         # reference to the model: a dropped model is freed at once, with
         # its cache (the reference's `delete`, fv3jedi_lm_mod.F90:223)
         self._marshal = Marshal(dyn, self.dtype, self.device, self.topo,
-                                self.tracers)
+                                self.tracers, self.nf)
         self._stepper = None
         # per-trajectory checkpoints and tapes (the reference's saveltraj
         # cache, fv3jedi_lm_utils_mod.F90:30): the whole window's with
@@ -191,23 +212,26 @@ class LinearModel:
 
     @classmethod
     def create(cls, cfg: LMConfig, device="cuda", ak=None, bk=None,
-               big=None) -> "LinearModel":
+               big=None, faces=None) -> "LinearModel":
         """Reference `create(dt,npx,npy,npz,ptop,ak,bk)`.  The model runs on
         the GPU; `device="cpu"` is the only way to run it on the CPU, and
-        without a CUDA device a call that names none raises."""
-        return cls(cfg, device, ak, bk, big=big)
+        without a CUDA device a call that names none raises.  `faces`: this
+        rank's FaceGroup, for one face of a face decomposition (dynamics
+        only: the physics raise NotImplementedError)."""
+        return cls(cfg, device, ak, bk, big=big, faces=faces)
 
     def zero_pert(self) -> dict:
         """A zero perturbation (allocate_pert, fv3jedi_lm_utils_mod.F90:75)."""
         n = self.cfg.dyn.nx
         npz = self.cfg.dyn.npz
         zeros = self._marshal.zeros
-        p = {f: zeros(npz, 6, n, n) for f in ("t", "delp") + self.tracers}
-        p["u"] = zeros(npz, 6, n + 1, n)
-        p["v"] = zeros(npz, 6, n, n + 1)
+        nf = self.nf
+        p = {f: zeros(npz, nf, n, n) for f in ("t", "delp") + self.tracers}
+        p["u"] = zeros(npz, nf, n + 1, n)
+        p["v"] = zeros(npz, nf, n, n + 1)
         if not self.cfg.dyn.hydrostatic:
-            p["w"] = zeros(npz, 6, n, n)
-            p["delz"] = zeros(npz, 6, n, n)
+            p["w"] = zeros(npz, nf, n, n)
+            p["delz"] = zeros(npz, nf, n, n)
         return p
 
     def rest_traj(self, t0: float = 280.0, ps0: float = 1.0e5) -> dict:
@@ -216,10 +240,11 @@ class LinearModel:
         n = self.cfg.dyn.nx
         pe = (self.ak[:, None, None, None]
               + self.bk[:, None, None, None] * ps0)
-        tr["delp"] = torch.as_tensor((pe[1:] - pe[:-1]) * np.ones((1, 6, n, n)),
+        ones = np.ones((1, self.nf, n, n))
+        tr["delp"] = torch.as_tensor((pe[1:] - pe[:-1]) * ones,
                                      dtype=self.dtype, device=self.device)
         tr["t"] = torch.full_like(tr["t"], t0)
-        tr["phis"] = self._marshal.zeros(6, n, n)
+        tr["phis"] = self._marshal.zeros(self.nf, n, n)
         if not self.cfg.dyn.hydrostatic:
             # layer depths in discrete balance with the SIM1 equation of
             # state: rho*R*T == pm, so the NH solver starts with zero
@@ -229,10 +254,10 @@ class LinearModel:
             dm = pe[1:] - pe[:-1]
             pm = dm / dlnp
             tr["delz"] = torch.as_tensor(
-                -(dm / GRAV) * RGAS * t0 / pm * np.ones((1, 6, n, n)),
+                -(dm / GRAV) * RGAS * t0 / pm * ones,
                 dtype=self.dtype, device=self.device)
         for f in SURFACE_2D:
-            tr[f] = self._marshal.zeros(6, n, n)
+            tr[f] = self._marshal.zeros(self.nf, n, n)
         return tr
 
     # -- stepping ----------------------------------------------------------------
@@ -338,7 +363,7 @@ class LinearModel:
         (fv3jedi_lm_moist_mod.F90 set_ltraj:721-737)."""
         n = self.cfg.dyn.nx
         sfc = self._sfc(traj, ("ts", "frland", "kcbl", "khu", "khl"),
-                        (6, n, n))
+                        (self.nf, n, n))
         sfc.update({f: traj[f] for f in MOIST_3D if f in traj})
         return sfc
 
@@ -346,9 +371,10 @@ class LinearModel:
         """Frozen-K turbulence coefficients linearized at `prog`, the state
         the physics step reaches the turbulence with."""
         n = self.cfg.dyn.nx
-        sfc = self._sfc(traj, SURFACE_2D, (6, n, n))
+        sfc = self._sfc(traj, SURFACE_2D, (self.nf, n, n))
         # 3-D cloud condensate (bldriver QLTOT)
-        sfc.update(self._sfc(traj, ("qls", "qcn"), (self.cfg.dyn.npz, 6, n, n)))
+        sfc.update(self._sfc(traj, ("qls", "qcn"),
+                             (self.cfg.dyn.npz, self.nf, n, n)))
         return self._turb.set_ltraj(dict(prog, **sfc), self.cfg.dt,
                                     do_phy_mst=self.cfg.do_phy_mst)
 
@@ -426,9 +452,16 @@ class LinearModel:
     # calls (the tapenade_iter checkpointing cache, tapenade_iter.F90:
     # 118-199).
 
+    def _whole_cube(self, what):
+        if self.faces is not None:
+            raise NotImplementedError(
+                f"{what} on a face decomposition is not ported (ROADMAP "
+                "Queue 1 item 9)")
+
     def run_nl(self, traj0: dict) -> list:
         """Propagate the window: returns [x_0, x_1, ..., x_nt]; trajs[n] is
         the linearization state of window step n."""
+        self._whole_cube("run_nl")
         trajs = [traj0]
         tr = traj0
         for _ in range(self.cfg.nt):
@@ -438,6 +471,7 @@ class LinearModel:
 
     def run_tl(self, trajs: list, pert: dict) -> dict:
         """M(x_{nt-1}) ... M(x_0) applied to `pert`."""
+        self._whole_cube("run_tl")
         p = pert
         for n in range(self.cfg.nt):
             p = self.step_tl(trajs[n], p)
@@ -445,6 +479,7 @@ class LinearModel:
 
     def run_ad(self, trajs: list, pert_ad: dict) -> dict:
         """The transpose of run_tl: the per-step adjoints in reverse."""
+        self._whole_cube("run_ad")
         pb = pert_ad
         for n in reversed(range(self.cfg.nt)):
             pb = self.step_ad(trajs[n], pb)

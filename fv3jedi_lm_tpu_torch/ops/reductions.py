@@ -10,7 +10,9 @@ each level adds neighbouring pairs and keeps the exact rounding error of
 every addition (Knuth's TwoSum, branch-free), the errors summed alongside.
 That is about log2(n) levels of a few tensor operations (16 at c96)
 instead of n sequential steps, and the result is the exact sum to within
-an ulp or two, whatever the order the values come in.
+an ulp or two, whatever the order the values come in.  On a face
+decomposition each rank gathers the six faces' values before the tree, so
+the tree, and its result, are the single process's bit for bit.
 
 `g_sum` is linear in `p`, so it is a `torch.autograd.Function` whose
 tangent is the g_sum of the tangent and whose cotangent is the incoming
@@ -47,49 +49,75 @@ def compensated_sum(x):
     return (s + c)[0]
 
 
-def _g_sum(p, area, mode, reproduce):
-    x = p * area
-    if reproduce:
-        s = compensated_sum(x)
-        return s / compensated_sum(area) if mode == 1 else s
-    s = x.sum()
-    return s / area.sum() if mode == 1 else s
+def _sum(x, reproduce):
+    return compensated_sum(x) if reproduce else x.sum()
+
+
+def _gather(x, faces):
+    """The whole cube's (6, ...) field: `x` itself on one process, the six
+    ranks' faces joined in face order on a face decomposition."""
+    return x if faces is None else faces.all_gather(x, -3)
+
+
+def _g_sum(p, area, total, reproduce, faces):
+    s = _sum(_gather(p * area, faces), reproduce)
+    return s if total is None else s / total
 
 
 class _GSum(torch.autograd.Function):
     @staticmethod
-    def forward(p, area, mode, reproduce):
-        return _g_sum(p, area, mode, reproduce)
+    def forward(p, area, total, reproduce, faces):
+        return _g_sum(p, area, total, reproduce, faces)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        p, area, mode, reproduce = inputs
-        ctx.mode = mode
-        ctx.reproduce = reproduce
-        ctx.save_for_backward(area)
-        ctx.save_for_forward(area)
+        p, area, total, reproduce, faces = inputs
+        ctx.reproduce, ctx.faces = reproduce, faces
+        ctx.save_for_backward(area, total)
+        ctx.save_for_forward(area, total)
 
     @staticmethod
-    def jvp(ctx, dp, darea, dmode, dreproduce):
-        (area,) = ctx.saved_tensors
+    def jvp(ctx, dp, *_):
+        area, total = ctx.saved_tensors
         if dp is None:
             return area.new_zeros(())
-        return _g_sum(dp, area, ctx.mode, ctx.reproduce)
+        return _g_sum(dp, area, total, ctx.reproduce, ctx.faces)
 
     @staticmethod
     def backward(ctx, g):
-        (area,) = ctx.saved_tensors
-        w = area
-        if ctx.mode == 1:
-            w = area / (compensated_sum(area) if ctx.reproduce
-                        else area.sum())
-        return g * w, None, None, None
+        area, total = ctx.saved_tensors
+        if ctx.faces is not None:
+            # every rank holds the sum and passes it on: its cotangent is
+            # the sum of the ranks' cotangents
+            g = ctx.faces.all_gather(g.reshape(1), 0).sum()
+        w = area if total is None else area / total
+        return g * w, None, None, None, None
 
 
-def g_sum(p, area, mode: int = 0, reproduce: bool = True):
+def global_area(area, reproduce: bool = True, faces=None):
+    """The sum of `area` over the cube, gathered from the six ranks on a
+    face decomposition: g_sum's divisor in mode 1.  The reference's g_sum
+    sums it on its first call and keeps it (`global_area`); a caller that
+    sums in mode 1 more than once computes it here once and passes it."""
+    return _sum(_gather(area, faces), reproduce)
+
+
+def g_sum(p, area, mode: int = 0, reproduce: bool = True, faces=None,
+          total=None):
     """Area-weighted global sum of a compute-domain field.
 
     p, area: same-shape tensors (e.g. (6, ny, nx)).  mode 1 divides by the
-    global area (fv_grid_utils_nlm.F90:2917-2921); reproduce=True takes
-    the compensated sum, False the plain `sum`."""
-    return _GSum.apply(p, area, mode, reproduce)
+    global area (fv_grid_utils_nlm.F90:2917-2921): `total`, from
+    `global_area`, or summed here when None; reproduce=True takes the
+    compensated sum, False the plain `sum`.  On a face decomposition
+    (`faces`, the rank's parallel/faces.FaceGroup; p and area (1, ny, nx))
+    the products are gathered from the six ranks in face order and summed
+    by the same tree, so the sum is bitwise the single process's, whatever
+    the layout.  Each rank holds the sum and passes it on, so the
+    cotangent of `p` is `area` times the sum of the ranks' cotangents of
+    the sum, gathered from the six."""
+    if mode != 1:
+        total = None
+    elif total is None:
+        total = global_area(area, reproduce, faces)
+    return _GSum.apply(p, area, total, reproduce, faces)

@@ -8,13 +8,18 @@ an `index_select` from the input.  The index tensors are built once per
 (map, device).  Only copies and sign flips happen, so the result is
 bitwise equal to the JAX package's.
 
-Field layout: 3-D fields (npz, 6, jdim, idim); 2-D fields (6, jdim, idim).
+Field layout: 3-D fields (npz, 6, jdim, idim); 2-D fields (6, jdim, idim);
+on a face decomposition (npz, 1, jdim, idim) and (1, jdim, idim), one face
+per rank, the cross-face updates exchanged point to point
+(parallel/exchange.py) and the per-face corner fills as they are.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from . import exchange
 
 #: rectangle decompositions with their device index tensors, keyed by id()
 #: of the (topology-cached, immortal) map arrays and the device
@@ -132,29 +137,44 @@ def _apply_vector_map(u, v, mu, mv, nflat=3):
 
 
 # ----------------------------------------------------------------------
-# Cross-face halo updates
+# Cross-face halo updates: the gathers above on one process; on a face
+# decomposition (`topo` a parallel/faces.FaceTopology, which carries its
+# FaceGroup) the point-to-point exchange of parallel/exchange.py over the
+# same maps.  Every rank issues every update, whatever its plan holds.
 # ----------------------------------------------------------------------
+
+def _scalar(q, topo, idx):
+    if getattr(topo, "faces", None) is None:
+        return _apply_scalar(q, idx, 3)
+    return exchange.exchange_scalar(q, topo, idx)
+
+
+def _pair(x, y, topo, mx, my):
+    if getattr(topo, "faces", None) is None:
+        return _apply_vector_map(x, y, mx, my)
+    return exchange.exchange_pair(x, y, topo, mx, my)
+
 
 def fill_halo_center(q, topo):
     """Scalar halo update, cell centers (mpp_update_domains, CENTER)."""
-    return _apply_scalar(q, topo.halo_map_center(), 3)
+    return _scalar(q, topo, topo.halo_map_center())
 
 
 def fill_halo_corner(q, topo):
     """Scalar halo update at B-grid corners (position=CORNER)."""
-    return _apply_scalar(q, topo.halo_map_corner(), 3)
+    return _scalar(q, topo, topo.halo_map_corner())
 
 
 def fill_halo_dgrid(u, v, topo):
     """D-grid wind pair halo update (gridtype=DGRID_NE)."""
     m = topo.halo_map_dgrid()
-    return _apply_vector_map(u, v, m["x"], m["y"])
+    return _pair(u, v, topo, m["x"], m["y"])
 
 
 def fill_halo_cgrid(uc, vc, topo):
     """C-grid wind pair halo update (gridtype=CGRID_NE)."""
     m = topo.halo_map_cgrid()
-    return _apply_vector_map(uc, vc, m["x"], m["y"])
+    return _pair(uc, vc, topo, m["x"], m["y"])
 
 
 def _abs_sign_maps(m):
@@ -172,12 +192,12 @@ def _abs_sign_maps(m):
 def fill_halo_cgrid_scalar_pair(x, y, topo):
     """C-grid pair update without vector sign semantics (SCALAR_PAIR)."""
     mx, my = _abs_sign_maps(topo.halo_map_cgrid())
-    return _apply_vector_map(x, y, mx, my)
+    return _pair(x, y, topo, mx, my)
 
 
 def fill_halo_dgrid_scalar_pair(x, y, topo):
     mx, my = _abs_sign_maps(topo.halo_map_dgrid())
-    return _apply_vector_map(x, y, mx, my)
+    return _pair(x, y, topo, mx, my)
 
 
 def fix_shared_edges_dgrid(u, v, topo):
@@ -185,7 +205,7 @@ def fix_shared_edges_dgrid(u, v, topo):
     (mpp_get_boundary(u, v, DGRID_NE) + overwrite of the north u row /
     east v column)."""
     m = topo.edge_fix_maps_dgrid()
-    return _apply_vector_map(u, v, m["u"], m["v"])
+    return _pair(u, v, topo, m["u"], m["v"])
 
 
 # ----------------------------------------------------------------------

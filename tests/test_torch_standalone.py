@@ -6,7 +6,8 @@ the caller asks for the CPU.
 No JAX function is compiled here: the copies are NumPy, so each pair is
 compared directly (grids at c12 and c24, ak/bk, constants, configs, and
 the physics' tables: the saturation table ESTBLX and its polynomials,
-RASPARAMS, CLOUDPARAMS, the turbulence parameters and the ACRITN tables).
+RASPARAMS, CLOUDPARAMS, the turbulence parameters and the ACRITN tables),
+and the exchange plan the port's parallel/ppermute.py copies.
 """
 
 import dataclasses
@@ -23,6 +24,7 @@ from fv3jedi_lm_tpu import config as jax_config
 from fv3jedi_lm_tpu import constants as jax_constants
 from fv3jedi_lm_tpu.grid import eta as jax_eta
 from fv3jedi_lm_tpu.grid import metrics as jax_metrics
+from fv3jedi_lm_tpu.parallel import ppermute as jax_ppermute
 from fv3jedi_lm_tpu.physics import bldriver as jax_bldriver
 from fv3jedi_lm_tpu.physics import cloud as jax_cloud
 from fv3jedi_lm_tpu.physics import convection as jax_convection
@@ -31,6 +33,7 @@ from fv3jedi_lm_tpu_torch import config as port_config
 from fv3jedi_lm_tpu_torch import constants as port_constants
 from fv3jedi_lm_tpu_torch.grid import eta as port_eta
 from fv3jedi_lm_tpu_torch.grid import metrics as port_metrics
+from fv3jedi_lm_tpu_torch.parallel import ppermute as port_ppermute
 from fv3jedi_lm_tpu_torch.physics import bldriver as port_bldriver
 from fv3jedi_lm_tpu_torch.physics import cloud as port_cloud
 from fv3jedi_lm_tpu_torch.physics import convection as port_convection
@@ -162,6 +165,36 @@ def test_topology_connectivity_matches(grids, npx):
     port, ref = grids[npx]
     for attr in ("npx", "ng", "n", "neighbor", "corners_int"):
         _bits_equal(getattr(port.topo, attr), getattr(ref.topo, attr), attr)
+
+
+#: the face decomposition's modules, which no test of the JAX package's
+#: multi-device path may need
+PARALLEL_MODULES = ("fv3jedi_lm_tpu_torch.parallel.ppermute",
+                    "fv3jedi_lm_tpu_torch.parallel.exchange",
+                    "fv3jedi_lm_tpu_torch.parallel.faces")
+
+
+@pytest.mark.parametrize("module", PARALLEL_MODULES)
+def test_parallel_module_imports_no_jax(module):
+    """Each module of the face decomposition, imported alone in a fresh
+    process, leaves neither jax nor the JAX package in sys.modules."""
+    code = (f"import sys, {module}\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'fv3jedi_lm_tpu')))")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.strip() == "[]", r.stdout
+
+
+@pytest.mark.parametrize("npx", [13, 25])
+def test_center_plan_matches(grids, npx):
+    """parallel/ppermute._center_plan, the port's copy, builds the JAX
+    package's exchange plan bit for bit."""
+    port, ref = grids[npx]
+    _bits_equal(port_ppermute._center_plan(port.topo),
+                jax_ppermute._center_plan(ref.topo))
 
 
 @pytest.mark.parametrize("name", ["_esat_liquid", "_esat_ice"])
