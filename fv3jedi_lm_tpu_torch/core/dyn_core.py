@@ -32,7 +32,7 @@ from ..constants import CP as CP_AIR
 from ..constants import GRAV, RGAS
 from ..ops.a2b_edge import a2b_ord2, a2b_ord4
 from ..ops.d_sw import d_sw
-from ..ops.sw_core import F2P, SL, c_sw
+from ..ops.sw_core import F2P, SL, c_sw, tile_of
 from ..parallel import halo
 from ..timing import scope
 from .freeze import fabs, fbool, fmax, fmin, fscan, fsign_mul, mix_primal
@@ -65,33 +65,32 @@ def p_grad_c(dt2, pkc, gz, uc, vc, grid, npx, delpc=None):
     nonhydrostatic (delpc given): pkc is the FULL pressure from
     Riem_Solver_C and the layer weight is delpc (:1394-1404)."""
     p = F2P
-    n = npx - 1
-    npy = npx
+    T, X, Y = tile_of(grid, npx)
     rdxc = grid["rdxc"]
     rdyc = grid["rdyc"]
     wk = delpc if delpc is not None else pkc[1:] - pkc[:-1]
 
-    bs = SL(1, npx)
-    cs = SL(1, n)
-    cm = slice(p(0), p(n) + 1)   # cells i-1 window for B cols 1..npx
-    c0 = slice(p(1), p(npx) + 1)  # cells i window
+    bsx, bsy = SL(1, X), SL(1, Y)
+    csx, csy = SL(1, T.nx), SL(1, T.ny)
+    cm = slice(p(0), p(T.nx) + 1)   # cells i-1 window for B cols 1..X
+    c0 = slice(p(1), p(X) + 1)      # cells i window
 
     uc = uc.clone()
-    uc[..., cs, bs] += (
-        dt2 * rdxc[..., cs, bs] / (wk[..., cs, cm] + wk[..., cs, c0])
-        * ((gz[1:][..., cs, cm] - gz[:-1][..., cs, c0])
-           * (pkc[1:][..., cs, c0] - pkc[:-1][..., cs, cm])
-           + (gz[:-1][..., cs, cm] - gz[1:][..., cs, c0])
-           * (pkc[1:][..., cs, cm] - pkc[:-1][..., cs, c0])))
-    rm = slice(p(0), p(n) + 1)
-    r0 = slice(p(1), p(npy) + 1)
+    uc[..., csy, bsx] += (
+        dt2 * rdxc[..., csy, bsx] / (wk[..., csy, cm] + wk[..., csy, c0])
+        * ((gz[1:][..., csy, cm] - gz[:-1][..., csy, c0])
+           * (pkc[1:][..., csy, c0] - pkc[:-1][..., csy, cm])
+           + (gz[:-1][..., csy, cm] - gz[1:][..., csy, c0])
+           * (pkc[1:][..., csy, cm] - pkc[:-1][..., csy, c0])))
+    rm = slice(p(0), p(T.ny) + 1)
+    r0 = slice(p(1), p(Y) + 1)
     vc = vc.clone()
-    vc[..., bs, cs] += (
-        dt2 * rdyc[..., bs, cs] / (wk[..., rm, cs] + wk[..., r0, cs])
-        * ((gz[1:][..., rm, cs] - gz[:-1][..., r0, cs])
-           * (pkc[1:][..., r0, cs] - pkc[:-1][..., rm, cs])
-           + (gz[:-1][..., rm, cs] - gz[1:][..., r0, cs])
-           * (pkc[1:][..., rm, cs] - pkc[:-1][..., r0, cs])))
+    vc[..., bsy, csx] += (
+        dt2 * rdyc[..., bsy, csx] / (wk[..., rm, csx] + wk[..., r0, csx])
+        * ((gz[1:][..., rm, csx] - gz[:-1][..., r0, csx])
+           * (pkc[1:][..., r0, csx] - pkc[:-1][..., rm, csx])
+           + (gz[:-1][..., rm, csx] - gz[1:][..., r0, csx])
+           * (pkc[1:][..., rm, csx] - pkc[:-1][..., r0, csx])))
     return uc, vc
 
 
@@ -99,48 +98,54 @@ def one_grad_p(u, v, pk, gz, dt, grid, npx, ptop, akap, divg2=None):
     """D-grid pressure gradient, hydrostatic (dyn_core_nlm.F90:1645-1778);
     `divg2` (B-grid, from _d_ext_divg2) adds the external-mode damping
     when d_ext > 0."""
-    p = F2P
-    n = npx - 1
-    npy = npx
     rdx = grid["rdx"]
     rdy = grid["rdy"]
-    jb = u.shape[-2]
     ptk = ptop ** akap
 
     # B-grid interface fields
-    top = pk.new_full(pk.shape[1:-2] + (jb, jb), ptk)[None]
+    top = pk.new_full(pk.shape[1:-2] + _b_shape(pk), ptk)[None]
     pk_b = torch.cat([top, a2b_ord4(pk[1:], grid)])
     gz_b = a2b_ord4(gz, grid)
 
-    bs = SL(1, npx)
-    cs = SL(1, n)
+    (bsy, bsx), (csy, csx), (b0, b1), (r0, r1) = _b_slices(grid, npx)
     if divg2 is not None:
-        wk2 = divg2[..., bs, p(1):p(n) + 1] - divg2[..., bs, p(2):p(npx) + 1]
-        wk1 = divg2[..., p(1):p(n) + 1, bs] - divg2[..., p(2):p(npy) + 1, bs]
+        wk2 = divg2[..., bsy, b0] - divg2[..., bsy, b1]
+        wk1 = divg2[..., r0, bsx] - divg2[..., r1, bsx]
     else:
         wk2 = wk1 = 0.0
     wk = pk_b[1:] - pk_b[:-1]
-    b0 = slice(p(1), p(n) + 1)    # B cols i for u's cells 1..n
-    b1 = slice(p(2), p(npx) + 1)  # B cols i+1
     u_new = u.clone()
-    u_new[..., bs, cs] = rdx[..., bs, cs] * (
-        wk2 + u[..., bs, cs]
-        + dt / (wk[..., bs, b0] + wk[..., bs, b1])
-        * ((gz_b[1:][..., bs, b0] - gz_b[:-1][..., bs, b1])
-           * (pk_b[1:][..., bs, b1] - pk_b[:-1][..., bs, b0])
-           + (gz_b[:-1][..., bs, b0] - gz_b[1:][..., bs, b1])
-           * (pk_b[1:][..., bs, b0] - pk_b[:-1][..., bs, b1])))
-    r0 = slice(p(1), p(n) + 1)
-    r1 = slice(p(2), p(npy) + 1)
+    u_new[..., bsy, csx] = rdx[..., bsy, csx] * (
+        wk2 + u[..., bsy, csx]
+        + dt / (wk[..., bsy, b0] + wk[..., bsy, b1])
+        * ((gz_b[1:][..., bsy, b0] - gz_b[:-1][..., bsy, b1])
+           * (pk_b[1:][..., bsy, b1] - pk_b[:-1][..., bsy, b0])
+           + (gz_b[:-1][..., bsy, b0] - gz_b[1:][..., bsy, b1])
+           * (pk_b[1:][..., bsy, b0] - pk_b[:-1][..., bsy, b1])))
     v_new = v.clone()
-    v_new[..., cs, bs] = rdy[..., cs, bs] * (
-        wk1 + v[..., cs, bs]
-        + dt / (wk[..., r0, bs] + wk[..., r1, bs])
-        * ((gz_b[1:][..., r0, bs] - gz_b[:-1][..., r1, bs])
-           * (pk_b[1:][..., r1, bs] - pk_b[:-1][..., r0, bs])
-           + (gz_b[:-1][..., r0, bs] - gz_b[1:][..., r1, bs])
-           * (pk_b[1:][..., r0, bs] - pk_b[:-1][..., r1, bs])))
+    v_new[..., csy, bsx] = rdy[..., csy, bsx] * (
+        wk1 + v[..., csy, bsx]
+        + dt / (wk[..., r0, bsx] + wk[..., r1, bsx])
+        * ((gz_b[1:][..., r0, bsx] - gz_b[:-1][..., r1, bsx])
+           * (pk_b[1:][..., r1, bsx] - pk_b[:-1][..., r0, bsx])
+           + (gz_b[:-1][..., r0, bsx] - gz_b[1:][..., r1, bsx])
+           * (pk_b[1:][..., r0, bsx] - pk_b[:-1][..., r1, bsx])))
     return u_new, v_new
+
+
+def _b_shape(x):
+    """The (jby, jbx) of a padded center field x."""
+    return (x.shape[-2] + 1, x.shape[-1] + 1)
+
+
+def _b_slices(grid, npx):
+    """The tile's ((B rows, B cols), (cell rows, cell cols), (B cols i,
+    i+1 of cells 1..nx), (B rows j, j+1 of cells 1..ny))."""
+    p = F2P
+    T, X, Y = tile_of(grid, npx)
+    return ((SL(1, Y), SL(1, X)), (SL(1, T.ny), SL(1, T.nx)),
+            (slice(p(1), p(T.nx) + 1), slice(p(2), p(X) + 1)),
+            (slice(p(1), p(T.ny) + 1), slice(p(2), p(Y) + 1)))
 
 
 def _grad(gz_b, f_b, den, dt, r0, c0, r1, c1):
@@ -159,35 +164,26 @@ def grad1_p_update(u, v, pk, gz, divg2, du, dv, dt, grid, npx, ptop, akap,
     (du/dv, zero at each dyn_core entry; beta_d == 0 on the first substep,
     :367-374) plus (1 - beta_d) of the current one.  Returns the winds and
     the current gradients for the next substep."""
-    p = F2P
-    n = npx - 1
-    npy = npx
     rdx = grid["rdx"]
     rdy = grid["rdy"]
-    jb = u.shape[-2]
     alpha = 1.0 - beta_d
 
-    top = pk.new_full(pk.shape[1:-2] + (jb, jb), ptop ** akap)[None]
+    top = pk.new_full(pk.shape[1:-2] + _b_shape(pk), ptop ** akap)[None]
     pk_b = torch.cat([top, a2b_ord4(pk[1:], grid)])
     gz_b = a2b_ord4(gz, grid)
     wk = pk_b[1:] - pk_b[:-1]
 
-    bs = SL(1, npx)
-    cs = SL(1, n)
-    b0 = slice(p(1), p(n) + 1)
-    b1 = slice(p(2), p(npx) + 1)
-    du_new = _grad(gz_b, pk_b, wk, dt, bs, b0, bs, b1)
-    wk2 = divg2[..., bs, p(1):p(n) + 1] - divg2[..., bs, p(2):p(npx) + 1]
+    (bsy, bsx), (csy, csx), (b0, b1), (r0, r1) = _b_slices(grid, npx)
+    du_new = _grad(gz_b, pk_b, wk, dt, bsy, b0, bsy, b1)
+    wk2 = divg2[..., bsy, b0] - divg2[..., bsy, b1]
     u_new = u.clone()
-    u_new[..., bs, cs] = ((u[..., bs, cs] + beta_d * du + wk2
-                           + alpha * du_new) * rdx[..., bs, cs])
-    r0 = slice(p(1), p(n) + 1)
-    r1 = slice(p(2), p(npy) + 1)
-    dv_new = _grad(gz_b, pk_b, wk, dt, r0, bs, r1, bs)
-    wk1 = divg2[..., p(1):p(n) + 1, bs] - divg2[..., p(2):p(npy) + 1, bs]
+    u_new[..., bsy, csx] = ((u[..., bsy, csx] + beta_d * du + wk2
+                             + alpha * du_new) * rdx[..., bsy, csx])
+    dv_new = _grad(gz_b, pk_b, wk, dt, r0, bsx, r1, bsx)
+    wk1 = divg2[..., r0, bsx] - divg2[..., r1, bsx]
     v_new = v.clone()
-    v_new[..., cs, bs] = ((v[..., cs, bs] + beta_d * dv + wk1
-                           + alpha * dv_new) * rdy[..., cs, bs])
+    v_new[..., csy, bsx] = ((v[..., csy, bsx] + beta_d * dv + wk1
+                             + alpha * dv_new) * rdy[..., csy, bsx])
     return u_new, v_new, du_new, dv_new
 
 
@@ -198,37 +194,29 @@ def split_p_grad(u, v, pp, gz, delp, pk3, du, dv, dt, grid, npx, ptop, akap,
     hydrostatic component off-centered with the previous substep's stored
     gradient (du/dv), the perturbation-pressure component applied in full
     each substep."""
-    p = F2P
-    n = npx - 1
-    npy = npx
     rdx = grid["rdx"]
     rdy = grid["rdy"]
-    jb = u.shape[-2]
     alpha = 1.0 - beta_d
 
-    top_pk = pk3.new_full(pk3.shape[1:-2] + (jb, jb), ptop ** akap)[None]
+    top_pk = pk3.new_full(pk3.shape[1:-2] + _b_shape(pk3),
+                          ptop ** akap)[None]
     pk_b = torch.cat([top_pk, a2b_ord4(pk3[1:], grid)])
     pp_b = torch.cat([torch.zeros_like(top_pk), a2b_ord4(pp[1:], grid)])
     gz_b = a2b_ord4(gz, grid)
     dp_b = a2b_ord4(delp, grid)
     wk = pk_b[1:] - pk_b[:-1]
 
-    bs = SL(1, npx)
-    cs = SL(1, n)
-    b0 = slice(p(1), p(n) + 1)
-    b1 = slice(p(2), p(npx) + 1)
-    du_new = _grad(gz_b, pk_b, wk, dt, bs, b0, bs, b1)
-    dun = _grad(gz_b, pp_b, dp_b, dt, bs, b0, bs, b1)
+    (bsy, bsx), (csy, csx), (b0, b1), (r0, r1) = _b_slices(grid, npx)
+    du_new = _grad(gz_b, pk_b, wk, dt, bsy, b0, bsy, b1)
+    dun = _grad(gz_b, pp_b, dp_b, dt, bsy, b0, bsy, b1)
     u_new = u.clone()
-    u_new[..., bs, cs] = ((u[..., bs, cs] + beta_d * du + alpha * du_new
-                           + dun) * rdx[..., bs, cs])
-    r0 = slice(p(1), p(n) + 1)
-    r1 = slice(p(2), p(npy) + 1)
-    dv_new = _grad(gz_b, pk_b, wk, dt, r0, bs, r1, bs)
-    dvn = _grad(gz_b, pp_b, dp_b, dt, r0, bs, r1, bs)
+    u_new[..., bsy, csx] = ((u[..., bsy, csx] + beta_d * du + alpha * du_new
+                             + dun) * rdx[..., bsy, csx])
+    dv_new = _grad(gz_b, pk_b, wk, dt, r0, bsx, r1, bsx)
+    dvn = _grad(gz_b, pp_b, dp_b, dt, r0, bsx, r1, bsx)
     v_new = v.clone()
-    v_new[..., cs, bs] = ((v[..., cs, bs] + beta_d * dv + alpha * dv_new
-                           + dvn) * rdy[..., cs, bs])
+    v_new[..., csy, bsx] = ((v[..., csy, bsx] + beta_d * dv + alpha * dv_new
+                             + dvn) * rdy[..., csy, bsx])
     return u_new, v_new, du_new, dv_new
 
 
@@ -237,36 +225,27 @@ def nh_p_grad(u, v, pp, gz, delp, pk3, dt, grid, npx, ptop, akap):
     use_logp=.false.): the hydrostatic gradient on pk3 = p**kappa layers
     plus the perturbation-pressure (pp) gradient on delp layers, both via
     4th-order B-grid corner interpolation."""
-    p = F2P
-    n = npx - 1
-    npy = npx
     rdx = grid["rdx"]
     rdy = grid["rdy"]
-    jb = u.shape[-2]
     ptk = ptop ** akap
 
-    top_pk = pk3.new_full(pk3.shape[1:-2] + (jb, jb), ptk)[None]
+    top_pk = pk3.new_full(pk3.shape[1:-2] + _b_shape(pk3), ptk)[None]
     pk_b = torch.cat([top_pk, a2b_ord4(pk3[1:], grid)])
     pp_b = torch.cat([torch.zeros_like(top_pk), a2b_ord4(pp[1:], grid)])
     gz_b = a2b_ord4(gz, grid)
     dp_b = a2b_ord4(delp, grid)
 
     wk = pk_b[1:] - pk_b[:-1]
-    bs = SL(1, npx)
-    cs = SL(1, n)
-    b0 = slice(p(1), p(n) + 1)
-    b1 = slice(p(2), p(npx) + 1)
-    du1 = _grad(gz_b, pk_b, wk, dt, bs, b0, bs, b1)
-    dun = _grad(gz_b, pp_b, dp_b, dt, bs, b0, bs, b1)
+    (bsy, bsx), (csy, csx), (b0, b1), (r0, r1) = _b_slices(grid, npx)
+    du1 = _grad(gz_b, pk_b, wk, dt, bsy, b0, bsy, b1)
+    dun = _grad(gz_b, pp_b, dp_b, dt, bsy, b0, bsy, b1)
     u_new = u.clone()
-    u_new[..., bs, cs] = (u[..., bs, cs] + du1 + dun) * rdx[..., bs, cs]
+    u_new[..., bsy, csx] = (u[..., bsy, csx] + du1 + dun) * rdx[..., bsy, csx]
 
-    r0 = slice(p(1), p(n) + 1)
-    r1 = slice(p(2), p(npy) + 1)
-    dv1 = _grad(gz_b, pk_b, wk, dt, r0, bs, r1, bs)
-    dvn = _grad(gz_b, pp_b, dp_b, dt, r0, bs, r1, bs)
+    dv1 = _grad(gz_b, pk_b, wk, dt, r0, bsx, r1, bsx)
+    dvn = _grad(gz_b, pp_b, dp_b, dt, r0, bsx, r1, bsx)
     v_new = v.clone()
-    v_new[..., cs, bs] = (v[..., cs, bs] + dv1 + dvn) * rdy[..., cs, bs]
+    v_new[..., csy, bsx] = (v[..., csy, bsx] + dv1 + dvn) * rdy[..., csy, bsx]
     return u_new, v_new
 
 
@@ -275,34 +254,35 @@ def del2_cubed(q, cd, grid, topo, nmax, npx):
     2090-2199): min(3, nmax) passes, each a 3-cell mean at the four cube
     corners then one del-2 flux divergence."""
     p = F2P
-    n = npx - 1
-    npy = npx
-    jc = q.shape[-1]
+    T, X, Y = tile_of(grid, npx)
+    nx, ny = T.nx, T.ny
+    jcy, jcx = q.shape[-2:]
     del6_u = grid["del6_u"]
     del6_v = grid["del6_v"]
     rarea = grid["rarea"]
     c3 = 1.0 / 3.0
     q = halo.fill_halo_center(q, topo)
+    corners = [e for own, e in (
+        (T.south and T.west, ((1, 1), (0, 1), (1, 0))),
+        (T.south and T.east, ((nx, 1), (X, 1), (nx, 0))),
+        (T.north and T.east, ((nx, ny), (X, ny), (nx, Y))),
+        (T.north and T.west, ((1, ny), (0, ny), (1, Y)))) if own]
     for _ in range(min(3, nmax)):
         q = q.clone()
-        for (ci, cj), (ai, aj), (bi, bj) in (
-                ((1, 1), (0, 1), (1, 0)),
-                ((n, 1), (npx, 1), (n, 0)),
-                ((n, n), (npx, n), (n, npy)),
-                ((1, n), (0, n), (1, npy))):
+        for (ci, cj), (ai, aj), (bi, bj) in corners:
             m = (q[..., p(cj), p(ci)] + q[..., p(aj), p(ai)]
                  + q[..., p(bj), p(bi)]) * c3
             q[..., p(cj), p(ci)] = m
             q[..., p(aj), p(ai)] = m
             q[..., p(bj), p(bi)] = m
         qx = halo.copy_corners(q, topo, 1)
-        fx = del6_v[..., :, 1:jc] * (qx[..., :, 0:jc - 1] - qx[..., :, 1:jc])
+        fx = del6_v[..., :, 1:jcx] * (qx[..., :, 0:jcx - 1] - qx[..., :, 1:jcx])
         qy = halo.copy_corners(q, topo, 2)
-        fy = del6_u[..., 1:jc, :] * (qy[..., 0:jc - 1, :] - qy[..., 1:jc, :])
+        fy = del6_u[..., 1:jcy, :] * (qy[..., 0:jcy - 1, :] - qy[..., 1:jcy, :])
         q = q.clone()
-        q[..., 1:jc - 1, 1:jc - 1] += cd * rarea[..., 1:jc - 1, 1:jc - 1] * (
-            fx[..., 1:jc - 1, 0:jc - 2] - fx[..., 1:jc - 1, 1:jc - 1]
-            + fy[..., 0:jc - 2, 1:jc - 1] - fy[..., 1:jc - 1, 1:jc - 1])
+        q[..., 1:jcy - 1, 1:jcx - 1] += cd * rarea[..., 1:jcy - 1, 1:jcx - 1] * (
+            fx[..., 1:jcy - 1, 0:jcx - 2] - fx[..., 1:jcy - 1, 1:jcx - 1]
+            + fy[..., 0:jcy - 2, 1:jcx - 1] - fy[..., 1:jcy - 1, 1:jcx - 1])
     return q
 
 
@@ -323,26 +303,22 @@ def adv_pe(ua, va, pem, om, grid, npx):
     averages (the bottom layer its own); grad(pe) comes from B-grid corner
     pressures (a2b_ord2) integrated around each cell with the en1/en2 edge
     normals.  Returns om with the term added on the compute lanes."""
-    p = F2P
-    n = npx - 1
-    cs = SL(1, n)
-    bs = SL(1, npx)
-    b0 = slice(p(1), p(n) + 1)
-    b1 = slice(p(2), p(npx) + 1)
+    (bsy, bsx), (csy, csx), (b0, b1), (r0, r1) = _b_slices(grid, npx)
 
     up = torch.cat([0.5 * (ua[:-1] + ua[1:]), ua[-1:]])
     vp = torch.cat([0.5 * (va[:-1] + va[1:]), va[-1:]])
-    v3 = (up[None][..., cs, cs] * grid["ec1"][:, None][..., cs, cs]
-          + vp[None][..., cs, cs] * grid["ec2"][:, None][..., cs, cs])
+    v3 = (up[None][..., csy, csx] * grid["ec1"][:, None][..., csy, csx]
+          + vp[None][..., csy, csx] * grid["ec2"][:, None][..., csy, csx])
     pb = a2b_ord2(pem[1:], grid)
-    pdx = ((pb[..., bs, b0] + pb[..., bs, b1])
-           * grid["dx"][..., bs, cs] * grid["en1"][:, None][..., bs, cs])
-    pdy = ((pb[..., b0, bs] + pb[..., b1, bs])
-           * grid["dy"][..., cs, bs] * grid["en2"][:, None][..., cs, bs])
+    pdx = ((pb[..., bsy, b0] + pb[..., bsy, b1])
+           * grid["dx"][..., bsy, csx] * grid["en1"][:, None][..., bsy, csx])
+    pdy = ((pb[..., r0, bsx] + pb[..., r1, bsx])
+           * grid["dy"][..., csy, bsx] * grid["en2"][:, None][..., csy, bsx])
     grad = ((pdx[..., 1:, :] - pdx[..., :-1, :])
             + (pdy[..., :, 1:] - pdy[..., :, :-1]))
     om = om.clone()
-    om[..., cs, cs] += 0.5 * grid["rarea"][..., cs, cs] * (v3 * grad).sum(0)
+    om[..., csy, csx] += (0.5 * grid["rarea"][..., csy, csx]
+                          * (v3 * grad).sum(0))
     return om
 
 
@@ -561,8 +537,8 @@ def acoustic_carry(state, cfg, npz):
     """Initial acoustic-loop carry from the interface state (zeroed heat
     source and vert block, filled by the final substep; NH interface
     heights)."""
-    n = cfg.npx - 1
-    jc = n + 2 * NG
+    jcy, jcx = state["delp"].shape[-2:]
+    ny, nx = jcy - 2 * NG, jcx - 2 * NG
     lead = state["u"].shape[:-2]
     u = state["u"]
     out = dict(
@@ -570,19 +546,19 @@ def acoustic_carry(state, cfg, npz):
         delp=state["delp"], pt=state["pt"],
         uc=state["uc"], vc=state["vc"], divgd=state["divgd"],
         mfx=state["mfx"], mfy=state["mfy"], cx=state["cx"], cy=state["cy"],
-        heat_source=u.new_zeros(lead + (n, n)),
-        pe=u.new_zeros((npz + 1,) + lead[1:] + (jc, jc)),
-        peln=u.new_zeros((npz + 1,) + lead[1:] + (jc, jc)),
-        pk=u.new_zeros((npz + 1,) + lead[1:] + (jc, jc)),
-        pkz=u.new_zeros(lead + (jc, jc)),
+        heat_source=u.new_zeros(lead + (ny, nx)),
+        pe=u.new_zeros((npz + 1,) + lead[1:] + (jcy, jcx)),
+        peln=u.new_zeros((npz + 1,) + lead[1:] + (jcy, jcx)),
+        pk=u.new_zeros((npz + 1,) + lead[1:] + (jcy, jcx)),
+        pkz=u.new_zeros(lead + (jcy, jcx)),
     )
     if cfg.beta > 0.0:
         # the previous substep's pressure gradient and the substep counter
         # of the off-centering (dyn_core_nlm.F90:254-258), zero at every
         # dyn_core entry: beta_d = 0 on substep 1 is the reference's
         # it == 1 reset (:367-374)
-        out["du"] = u.new_zeros(lead + (cfg.npx, n))
-        out["dv"] = u.new_zeros(lead + (n, cfg.npx))
+        out["du"] = u.new_zeros(lead + (ny + 1, nx))
+        out["dv"] = u.new_zeros(lead + (ny, nx + 1))
         out["itc"] = u.new_zeros(())
     if not cfg.hydrostatic:
         # interface heights from delz, zh(km+1) = zs (dyn_core_nlm.F90:
@@ -592,7 +568,7 @@ def acoustic_carry(state, cfg, npz):
             torch.cumsum(torch.flip(state["delz"], [0]), dim=0), [0]),
             zs[None]])
         out["delz"] = state["delz"]
-        out["ws"] = u.new_zeros(lead[1:] + (jc, jc))
+        out["ws"] = u.new_zeros(lead[1:] + (jcy, jcx))
     return out
 
 
@@ -617,7 +593,6 @@ def make_acoustic_substep(grid, topo, cfg, dt_remap, akap, ptop, npz, dtype,
     if mode not in ("traj", "mixed"):
         raise ValueError(f"acoustic substep mode {mode!r}")
     npx = cfg.npx
-    jb = npx + 2 * NG
     dt = dt_remap / cfg.n_split
     dt2 = 0.5 * dt
     device = grid["area"].device
@@ -760,7 +735,7 @@ def make_acoustic_substep(grid, topo, cfg, dt_remap, akap, ptop, npz, dtype,
             beta_d = torch.where(itc == 0.0, torch.zeros_like(itc),
                                  torch.full_like(itc, cfg.beta))
             if divg2 is None:
-                divg2 = u.new_zeros(u.shape[1:-2] + (jb, jb))
+                divg2 = u.new_zeros(u.shape[1:-2] + _b_shape(delp))
         if cfg.hydrostatic:
             with scope("geopk_d"):
                 pe, peln, pkc, gz, pkz = geopk(ptop, delp, pt, phis, akap)
@@ -834,21 +809,21 @@ def acoustic_finish(state, carry, grid, topo, cfg, dt_remap, npz):
     delp, pt = carry["delp"], carry["pt"]
     n_con = _n_con(cfg, npz)
     if cfg.d_con > 1.0e-5 and n_con != 0:
-        n = cfg.npx - 1
-        cs = SL(1, n)
+        T = grid["tile"]
+        cs = (SL(1, T.ny), SL(1, T.nx))
         hs_full = torch.zeros_like(delp)
-        hs_full[..., cs, cs] = carry["heat_source"]
+        hs_full[(Ellipsis,) + cs] = carry["heat_source"]
         hs_full = del2_cubed(hs_full, 0.20 * grid["da_min"], grid, topo,
                              min(3, cfg.nord + 1), cfg.npx)
-        dtmp = hs_full[..., cs, cs] / (CP_AIR * delp[..., cs, cs])
+        dtmp = hs_full[(Ellipsis,) + cs] / (CP_AIR * delp[(Ellipsis,) + cs])
         delt = abs(dt_remap) * cfg.delt_max
         kidx = torch.arange(npz, device=delp.device)[:, None, None, None]
         upd = torch.where(kidx < 3, dtmp,
                           fsign_mul(dtmp, fmin(delt, fabs(dtmp)))
-                          ) / carry["pkz"][..., cs, cs]
+                          ) / carry["pkz"][(Ellipsis,) + cs]
         upd = torch.where(kidx < n_con, upd, 0.0)
         pt = pt.clone()
-        pt[..., cs, cs] += upd
+        pt[(Ellipsis,) + cs] += upd
     state = dict(
         state, u=u, v=v, w=carry["w"], delp=delp, pt=pt,
         uc=carry["uc"], vc=carry["vc"], divgd=carry["divgd"],

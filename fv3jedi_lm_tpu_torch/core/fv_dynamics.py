@@ -27,7 +27,7 @@ from ..constants import GRAV, KAPPA, RGAS, ZVIR
 from ..ops import fv_mapz
 from ..ops.c2l import c2l_ord4
 from ..ops.reductions import CONSV_MIN, g_sum
-from ..ops.sw_core import F2P, SL
+from ..ops.sw_core import F2P, SL, cells
 from ..parallel import halo
 from ..timing import scope
 from . import freeze
@@ -37,18 +37,18 @@ from .fv_pressure import compute_fv3_pressures
 from .tracer2d import tracer_2d
 
 
-def _ke(u, v, grid, n):
+def _ke(u, v, grid):
     """Kinetic energy per unit mass on the compute cells from the D-grid
     winds (compute_total_energy, fv_mapz_nlm.F90:1010-1032)."""
-    cs = SL(1, n)
-    bs = SL(1, n + 1)
-    u_b = u[..., bs, cs]
-    v_b = v[..., cs, bs]
-    return 0.25 * grid["rsin2"][..., cs, cs] * (
+    T = grid["tile"]
+    cs = cells(grid)
+    u_b = u[..., SL(1, T.ny + 1), cs[2]]
+    v_b = v[..., cs[1], SL(1, T.nx + 1)]
+    return 0.25 * grid["rsin2"][cs] * (
         u_b[..., :-1, :] ** 2 + u_b[..., 1:, :] ** 2
         + v_b[..., :, :-1] ** 2 + v_b[..., :, 1:] ** 2
         - (u_b[..., :-1, :] + u_b[..., 1:, :])
-        * (v_b[..., :, :-1] + v_b[..., :, 1:]) * grid["cosa_s"][..., cs, cs])
+        * (v_b[..., :, :-1] + v_b[..., :, 1:]) * grid["cosa_s"][cs])
 
 
 def total_energy_hydro(u, v, tv, delp, pe, peln, hs, grid, npx):
@@ -57,16 +57,14 @@ def total_energy_hydro(u, v, tv, delp, pe, peln, hs, grid, npx):
     last-step recomputation, :640-659).  All inputs padded; tv is the
     virtual temperature on levels.  Returns the (6, n, n) compute-domain
     te_2d."""
-    n = npx - 1
-    cs = SL(1, n)
-    tv_c = tv[..., cs, cs]
-    peln_c = peln[..., cs, cs]
-    hs_c = hs[..., cs, cs]
+    cs = cells(grid)
+    tv_c = tv[cs]
+    peln_c = peln[cs]
+    hs_c = hs[cs]
     # gz at the model top: hs + sum_k rg*tv*(peln(k+1)-peln(k))
     gz_top = hs_c + (RGAS * tv_c * (peln_c[1:] - peln_c[:-1])).sum(0)
-    te = pe[-1][..., cs, cs] * hs_c - pe[0][..., cs, cs] * gz_top
-    return te + (delp[..., cs, cs] * (CP_AIR * tv_c + _ke(u, v, grid, n))
-                 ).sum(0)
+    te = pe[-1][cs] * hs_c - pe[0][cs] * gz_top
+    return te + (delp[cs] * (CP_AIR * tv_c + _ke(u, v, grid))).sum(0)
 
 
 def lagrangian_to_eulerian(state, vert, q, grid, cfg, ak, bk, akap, ptop,
@@ -92,11 +90,11 @@ def lagrangian_to_eulerian(state, vert, q, grid, cfg, ak, bk, akap, ptop,
     pt, delp = state["pt"], state["delp"]
     u, v = state["u"], state["v"]
     npz = delp.shape[0]
-    npy = npx = cfg.npx
-    n = npx - 1
+    T = grid["tile"]
     kord_tm = abs(cfg.kord_tm)
     p = F2P
-    cs = SL(1, n)
+    cs = cells(grid)
+    csy, csx = cs[1:]
 
     def remap_mix(kord_t, kord_p, call):
         out = call(kord_t)
@@ -104,8 +102,8 @@ def lagrangian_to_eulerian(state, vert, q, grid, cfg, ak, bk, akap, ptop,
             out = mix_primal(out, call(kord_p))
         return out
 
-    pe_c = pe[..., cs, cs]
-    peln_c = peln[..., cs, cs]
+    pe_c = pe[cs]
+    peln_c = peln[cs]
     ps_c = pe_c[-1]
     akx = ak.reshape((npz + 1,) + (1,) * (pe.ndim - 1))
     bkx = bk.reshape((npz + 1,) + (1,) * (pe.ndim - 1))
@@ -115,7 +113,7 @@ def lagrangian_to_eulerian(state, vert, q, grid, cfg, ak, bk, akap, ptop,
 
     # theta_v -> virtual temperature, remapped in log(p) (iv=1)
     pt_c = remap_mix(kord_tm, abs(cfg.kord_tm_pert), lambda kd: (
-        fv_mapz.map1_ppm(peln_c, pt[..., cs, cs] * pkz[..., cs, cs], None,
+        fv_mapz.map1_ppm(peln_c, pt[cs] * pkz[cs], None,
                          pn2_c, 1, kd, q_min=fv_mapz.T_MIN)))
 
     # tracers in p (iv=0)
@@ -123,12 +121,12 @@ def lagrangian_to_eulerian(state, vert, q, grid, cfg, ak, bk, akap, ptop,
         # one remap per tracer, in the JAX package's tape order
         qs = [remap_mix(cfg.kord_tr, cfg.kord_tr_pert,
                         lambda kd, qq=qq: fv_mapz.map1_ppm(
-                            pe_c, qq[..., cs, cs], None, pe2_c, 0, kd))
+                            pe_c, qq[cs], None, pe2_c, 0, kd))
               for qq in q]
     else:
         # the tracers a batch dimension next to k
         nq = len(q)
-        qsrc = torch.stack([qq[..., cs, cs] for qq in q], dim=1)
+        qsrc = torch.stack([qq[cs] for qq in q], dim=1)
         qexp = (npz + 1, nq) + pe_c.shape[1:]
         qs = fv_mapz.map1_ppm(pe_c[:, None].expand(qexp), qsrc, None,
                               pe2_c[:, None].expand(qexp), 0,
@@ -136,27 +134,28 @@ def lagrangian_to_eulerian(state, vert, q, grid, cfg, ak, bk, akap, ptop,
     q_new = []
     for qq, qc in zip(q, qs):
         qq = qq.clone()
-        qq[..., cs, cs] = qc
+        qq[cs] = qc
         q_new.append(qq)
     q = q_new
 
-    # u on B rows 1..npy: pe averaged between adjacent cell rows
-    rm = slice(p(0), p(npy - 1) + 1)   # cell rows j-1, j=1..npy
-    r0 = slice(p(1), p(npy) + 1)       # cell rows j
-    bsl = slice(p(1), p(npy) + 1)      # B rows 1..npy
+    # u on B rows 1..Y: pe averaged between adjacent cell rows
+    rm = slice(p(0), p(T.ny) + 1)       # cell rows j-1, j=1..Y
+    r0 = slice(p(1), p(T.ny + 1) + 1)   # cell rows j (= B rows 1..Y)
+    cm = slice(p(0), p(T.nx) + 1)
+    c0 = slice(p(1), p(T.nx + 1) + 1)
     ps_e = pe[-1][None]
-    pe_u = 0.5 * (pe[..., rm, cs] + pe[..., r0, cs])
-    pe3_u = akx + 0.5 * bkx * (ps_e[..., rm, cs] + ps_e[..., r0, cs])
+    pe_u = 0.5 * (pe[..., rm, csx] + pe[..., r0, csx])
+    pe3_u = akx + 0.5 * bkx * (ps_e[..., rm, csx] + ps_e[..., r0, csx])
     u_mid = remap_mix(cfg.kord_mt, cfg.kord_mt_pert, lambda kd: (
-        fv_mapz.map1_ppm(pe_u, u[..., bsl, cs], None, pe3_u, -1, kd)))
+        fv_mapz.map1_ppm(pe_u, u[..., r0, csx], None, pe3_u, -1, kd)))
     u = u.clone()
-    u[..., bsl, cs] = u_mid
-    pe_v = 0.5 * (pe[..., cs, rm] + pe[..., cs, r0])
-    pe3_v = akx + 0.5 * bkx * (ps_e[..., cs, rm] + ps_e[..., cs, r0])
+    u[..., r0, csx] = u_mid
+    pe_v = 0.5 * (pe[..., csy, cm] + pe[..., csy, c0])
+    pe3_v = akx + 0.5 * bkx * (ps_e[..., csy, cm] + ps_e[..., csy, c0])
     v_mid = remap_mix(cfg.kord_mt, cfg.kord_mt_pert, lambda kd: (
-        fv_mapz.map1_ppm(pe_v, v[..., cs, bsl], None, pe3_v, -1, kd)))
+        fv_mapz.map1_ppm(pe_v, v[..., csy, c0], None, pe3_v, -1, kd)))
     v = v.clone()
-    v[..., cs, bsl] = v_mid
+    v[..., csy, c0] = v_mid
 
     if cfg.hydrostatic:
         pkz_new_c = (pk2_c[1:] - pk2_c[:-1]) / (akap * (pn2_c[1:]
@@ -166,17 +165,17 @@ def lagrangian_to_eulerian(state, vert, q, grid, cfg, ak, bk, akap, ptop,
         # specific volume, then the NH equation-of-state pkz
         rrg = -RGAS / GRAV
         w_c = remap_mix(cfg.kord_wz, cfg.kord_wz, lambda kd: fv_mapz.map1_ppm(
-            pe_c, state["w"][..., cs, cs], state["ws"][..., cs, cs], pe2_c,
+            pe_c, state["w"][cs], state["ws"][cs], pe2_c,
             -2, kd))
         w = state["w"].clone()
-        w[..., cs, cs] = w_c
+        w[cs] = w_c
         delz = state["delz"]
-        sv_c = -delz[..., cs, cs] / delp[..., cs, cs]
+        sv_c = -delz[cs] / delp[cs]
         sv_c = remap_mix(kord_tm, abs(cfg.kord_tm_pert), lambda kd: (
             fv_mapz.map1_ppm(pe_c, sv_c, None, pe2_c, 1, kd)))
         delz_new_c = -sv_c * (pe2_c[1:] - pe2_c[:-1])
         delz = delz.clone()
-        delz[..., cs, cs] = delz_new_c
+        delz[cs] = delz_new_c
         state = dict(state, w=w, delz=delz)
         pkz_new_c = torch.exp(akap * torch.log(torch.clamp(
             rrg * (pe2_c[1:] - pe2_c[:-1]) / torch.clamp(delz_new_c, max=-1e-2)
@@ -190,15 +189,15 @@ def lagrangian_to_eulerian(state, vert, q, grid, cfg, ak, bk, akap, ptop,
             # step-entry te0_2d, the global deficit by the reproducible
             # g_sum, applied as pt += dtmp*pkz before the virtual-T
             # division
-            hs_c = state["phis"][..., cs, cs]
+            hs_c = state["phis"][cs]
             delp_new_c = pe2_c[1:] - pe2_c[:-1]
             gz_top = hs_c + (RGAS * pt_c * (pn2_c[1:] - pn2_c[:-1])).sum(0)
             te_new = (pe2_c[-1] * hs_c - pe2_c[0] * gz_top
-                      + (delp_new_c * (CP_AIR * pt_c + _ke(u, v, grid, n))
+                      + (delp_new_c * (CP_AIR * pt_c + _ke(u, v, grid))
                          ).sum(0))
             zsum1 = (pkz_new_c * delp_new_c).sum(0)
             zsum0 = ptop * (pk2_c[0] - pk2_c[-1]) + zsum1
-            area_c = grid["area"][..., cs, cs]
+            area_c = grid["area"][cs]
             tpe = cfg.consv_te * g_sum(state["te0_2d"] - te_new, area_c,
                                        faces=faces)
             dtmp = tpe / (CP_AIR * g_sum(zsum0, area_c, faces=faces))
@@ -208,16 +207,16 @@ def lagrangian_to_eulerian(state, vert, q, grid, cfg, ak, bk, akap, ptop,
         pt_c = pt_c / pkz_new_c
 
     pt = pt.clone()
-    pt[..., cs, cs] = pt_c
+    pt[cs] = pt_c
     delp = delp.clone()
-    delp[..., cs, cs] = pe2_c[1:] - pe2_c[:-1]
+    delp[cs] = pe2_c[1:] - pe2_c[:-1]
     ps = state["ps"].clone() if "ps" in state else torch.zeros_like(pe[-1])
-    ps[..., cs, cs] = ps_c
+    ps[cs] = ps_c
 
     state = dict(state, pt=pt, delp=delp, u=u, v=v, ps=ps)
     if last_step and "omga" in vert:
         om = torch.zeros_like(delp)
-        om[..., cs, cs] = _remap_omega(vert["omga"][..., cs, cs], peln_c,
+        om[cs] = _remap_omega(vert["omga"][cs], peln_c,
                                        pn2_c)
         state["omga"] = om
     vert = dict(pe=pe2_c, peln=pn2_c, pk=pk2_c, pkz=pkz_new_c)
@@ -253,12 +252,11 @@ def prep_stage(state, q, grid, topo, cfg, ptop):
     Hydrostatic, the entry pkz is that of compute_fv3_pressures.
     Nonhydrostatic, it is (rrg*delp/delz*Tv)**kappa, the exact inverse of
     the remap's exit conversion, so a state at rest round-trips exactly."""
-    n = cfg.npx - 1
     akap = KAPPA
     u = state["u"]
-    jc = n + 2 * NG
-    jb = jc + 1
     lead = (state["delp"].shape[0], state["delp"].shape[1])
+    jcy, jcx = state["delp"].shape[-2:]
+    ny, nx = jcy - 2 * NG, jcx - 2 * NG
 
     delp = halo.fill_halo_center(state["delp"], topo)
     pt_in = halo.fill_halo_center(state["pt"], topo)
@@ -284,14 +282,14 @@ def prep_stage(state, q, grid, topo, cfg, ptop):
 
     state = dict(
         state, delp=delp, pt=pt,
-        uc=u.new_zeros(lead + (jc, jb)),
-        vc=u.new_zeros(lead + (jb, jc)),
-        divgd=u.new_zeros(lead + (jb, jb)),
-        mfx=u.new_zeros(lead + (n, n + 1)),
-        mfy=u.new_zeros(lead + (n + 1, n)),
-        cx=u.new_zeros(lead + (jc, n + 1)),
-        cy=u.new_zeros(lead + (n + 1, jc)),
-        ps=u.new_zeros(lead[1:] + (jc, jc)),
+        uc=u.new_zeros(lead + (jcy, jcx + 1)),
+        vc=u.new_zeros(lead + (jcy + 1, jcx)),
+        divgd=u.new_zeros(lead + (jcy + 1, jcx + 1)),
+        mfx=u.new_zeros(lead + (ny, nx + 1)),
+        mfy=u.new_zeros(lead + (ny + 1, nx)),
+        cx=u.new_zeros(lead + (jcy, nx + 1)),
+        cy=u.new_zeros(lead + (ny + 1, jcx)),
+        ps=u.new_zeros(lead[1:] + (jcy, jcx)),
     )
     return state, q
 
@@ -299,16 +297,16 @@ def prep_stage(state, q, grid, topo, cfg, ptop):
 def pre_acoustic_stage(state, topo, cfg):
     """Start of one k_split sub-step: reset flux capacitors, refresh
     delp/pt (and NH delz) halos.  Returns (state', dp1)."""
-    n = cfg.npx - 1
-    jc = n + 2 * NG
     u = state["u"]
     lead = (state["delp"].shape[0], state["delp"].shape[1])
+    jcy, jcx = state["delp"].shape[-2:]
+    ny, nx = jcy - 2 * NG, jcx - 2 * NG
     state = dict(
         state,
-        mfx=u.new_zeros(lead + (n, n + 1)),
-        mfy=u.new_zeros(lead + (n + 1, n)),
-        cx=u.new_zeros(lead + (jc, n + 1)),
-        cy=u.new_zeros(lead + (n + 1, jc)),
+        mfx=u.new_zeros(lead + (ny, nx + 1)),
+        mfy=u.new_zeros(lead + (ny + 1, nx)),
+        cx=u.new_zeros(lead + (jcy, nx + 1)),
+        cy=u.new_zeros(lead + (ny + 1, jcx)),
         delp=halo.fill_halo_center(state["delp"], topo),
         pt=halo.fill_halo_center(state["pt"], topo),
     )
@@ -423,12 +421,12 @@ def rayleigh_super(state, grid, topo, cfg, bdt, pm, ptop):
     u2f = torch.as_tensor(
         np.where(np.arange(npz) < kmax, 1.0 / (1.0 + rf), 1.0)
         .reshape(npz, 1, 1, 1), dtype=u.dtype, device=u.device)
-    cs = SL(1, cfg.npx - 1)
+    cs = cells(grid)
     ua, va = c2l_ord4(u, state["v"], grid, topo, cfg.npx)
-    heat = (0.5 * (ua[..., cs, cs] ** 2 + va[..., cs, cs] ** 2)
+    heat = (0.5 * (ua[cs] ** 2 + va[cs] ** 2)
             * (1.0 - u2f ** 2) / _heat_den(pm, ptop, u))
     pt = state["pt"].clone()
-    pt[..., cs, cs] += heat
+    pt[cs] += heat
     return dict(state, u=u * u2f, v=state["v"] * u2f, pt=pt)
 
 
@@ -446,19 +444,19 @@ def rayleigh_friction(state, grid, topo, cfg, bdt, pm, ptop):
     rfk = torch.as_tensor(np.where(active, rf, 0.0).reshape(npz, 1, 1, 1),
                           dtype=u0.dtype, device=u0.device)
     act = torch.as_tensor(active.reshape(npz, 1, 1, 1), device=u0.device)
-    cs = SL(1, cfg.npx - 1)
+    cs = cells(grid)
     ua, va = c2l_ord4(u0, state["v"], grid, topo, cfg.npx)
     u2f_c = ua ** 2 + va ** 2
-    heat = (0.5 * u2f_c[..., cs, cs] / _heat_den(pm, ptop, u0)
-            * (1.0 - 1.0 / (1.0 + rfk * torch.sqrt(u2f_c[..., cs, cs]
+    heat = (0.5 * u2f_c[cs] / _heat_den(pm, ptop, u0)
+            * (1.0 - 1.0 / (1.0 + rfk * torch.sqrt(u2f_c[cs]
                                                     / u000)) ** 2))
     pt = state["pt"].clone()
-    pt[..., cs, cs] += torch.where(act, heat, 0.0)
+    pt[cs] += torch.where(act, heat, 0.0)
     # the drag: u2f -> rf*sqrt(u2f/u000), halo-filled, staggered averages;
     # the square root on the compute lanes only (the halo is refilled, and
     # a root of the zero halo lanes would put NaN in its derivative)
     u2f = torch.zeros_like(u2f_c)
-    u2f[..., cs, cs] = rfk * torch.sqrt(u2f_c[..., cs, cs] / u000)
+    u2f[cs] = rfk * torch.sqrt(u2f_c[cs] / u000)
     u2f = halo.fill_halo_center(u2f, topo)
     u_div = 1.0 + 0.5 * (u2f[..., 0:-1, :] + u2f[..., 1:, :])
     u = u0.clone()

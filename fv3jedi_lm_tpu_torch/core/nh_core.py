@@ -21,7 +21,7 @@ import torch
 from .. import NG
 from ..constants import GRAV, RGAS
 from ..ops.cuda_sim1 import sim1_solver_cuda
-from ..ops.sw_core import del6_vt_flux, fill_4corners
+from ..ops.sw_core import del6_vt_flux, fill_4corners, tile_of
 from ..ops.transport import fv_tp_2d
 from .freeze import fbool, fmax, fscan
 
@@ -254,34 +254,33 @@ def update_dz_d(dt, dp0, zs, zh, crx, cry, xfx, yfx, hord, grid, topo,
     (zh_new, ws)."""
     rdt = 1.0 / dt
     area = grid["area"]
-    jc = zh.shape[-1]
+    jcy, jcx = zh.shape[-2:]
 
     crx_adv = edge_profile(crx, dp0)
     xfx_adv = edge_profile(xfx, dp0)
     cry_adv = edge_profile(cry, dp0)
     yfx_adv = edge_profile(yfx, dp0)
 
-    cs = slice(NG, jc - NG)
-    ra_x = area[..., :, cs] + (xfx_adv[..., :, :-1] - xfx_adv[..., :, 1:])
-    ra_y = area[..., cs, :] + (yfx_adv[..., :-1, :] - yfx_adv[..., 1:, :])
+    csy, csx = slice(NG, jcy - NG), slice(NG, jcx - NG)
+    ra_x = area[..., :, csx] + (xfx_adv[..., :, :-1] - xfx_adv[..., :, 1:])
+    ra_y = area[..., csy, :] + (yfx_adv[..., :-1, :] - yfx_adv[..., 1:, :])
 
     fx, fy = fv_tp_2d(zh, crx_adv, cry_adv, hord, xfx_adv, yfx_adv, grid,
                       topo, ra_x, ra_y)
-    num = (zh[..., cs, cs] * area[..., cs, cs]
+    num = (zh[..., csy, csx] * area[..., csy, csx]
            + (fx[..., :, :-1] - fx[..., :, 1:])
            + (fy[..., :-1, :] - fy[..., 1:, :]))
-    den = ra_x[..., cs, :] + ra_y[..., :, cs] - area[..., cs, cs]
+    den = ra_x[..., csy, :] + ra_y[..., :, csx] - area[..., csy, csx]
     zh_c = num / den
     if damp is not None and ndif > 0:
         _, fx2, fy2 = del6_vt_flux(ndif, damp, zh, grid, topo)
-        bs = slice(NG, jc - NG + 1)
-        fx2 = fx2[..., cs, bs]
-        fy2 = fy2[..., bs, cs]
+        fx2 = fx2[..., csy, slice(NG, jcx - NG + 1)]
+        fy2 = fy2[..., slice(NG, jcy - NG + 1), csx]
         zh_c = zh_c + ((fx2[..., :, :-1] - fx2[..., :, 1:])
                        + (fy2[..., :-1, :] - fy2[..., 1:, :])
-                       ) * grid["rarea"][..., cs, cs]
+                       ) * grid["rarea"][..., csy, csx]
     zh_new = zh.clone()
-    zh_new[..., cs, cs] = zh_c
+    zh_new[..., csy, csx] = zh_c
 
     ws = (zs - zh_new[-1]) * rdt
     return _mono_up(zh_new), ws
@@ -320,25 +319,26 @@ def update_dz_c(dt, dp0, zs, ut, vt, gz, grid, npx):
     xfx = interfaces(ut)
     yfx = interfaces(vt)
 
-    jc = gz.shape[-1]
-    gx = fill_4corners(gz, 1, npx)
-    selx = fbool(xfx[..., :, 1:jc] > 0.0)
-    fx = xfx[..., :, 1:jc] * torch.where(selx, gx[..., :, 0:jc - 1],
-                                         gx[..., :, 1:jc])
-    gy = fill_4corners(gz, 2, npx)
-    sely = fbool(yfx[..., 1:jc, :] > 0.0)
-    fy = yfx[..., 1:jc, :] * torch.where(sely, gy[..., 0:jc - 1, :],
-                                         gy[..., 1:jc, :])
+    T, _, _ = tile_of(grid, npx)
+    jcy, jcx = gz.shape[-2:]
+    gx = fill_4corners(gz, 1, T)
+    selx = fbool(xfx[..., :, 1:jcx] > 0.0)
+    fx = xfx[..., :, 1:jcx] * torch.where(selx, gx[..., :, 0:jcx - 1],
+                                          gx[..., :, 1:jcx])
+    gy = fill_4corners(gz, 2, T)
+    sely = fbool(yfx[..., 1:jcy, :] > 0.0)
+    fy = yfx[..., 1:jcy, :] * torch.where(sely, gy[..., 0:jcy - 1, :],
+                                          gy[..., 1:jcy, :])
 
-    inner = slice(1, jc - 1)
-    num = (gz[..., inner, inner] * area[..., inner, inner]
-           + (fx[..., inner, :-1] - fx[..., inner, 1:])
-           + (fy[..., :-1, inner] - fy[..., 1:, inner]))
-    den = (area[..., inner, inner]
-           + (xfx[..., inner, 1:jc - 1] - xfx[..., inner, 2:jc])
-           + (yfx[..., 1:jc - 1, inner] - yfx[..., 2:jc, inner]))
+    iy, ix = slice(1, jcy - 1), slice(1, jcx - 1)
+    num = (gz[..., iy, ix] * area[..., iy, ix]
+           + (fx[..., iy, :-1] - fx[..., iy, 1:])
+           + (fy[..., :-1, ix] - fy[..., 1:, ix]))
+    den = (area[..., iy, ix]
+           + (xfx[..., iy, 1:jcx - 1] - xfx[..., iy, 2:jcx])
+           + (yfx[..., 1:jcy - 1, ix] - yfx[..., 2:jcy, ix]))
     gz_new = gz.clone()
-    gz_new[..., inner, inner] = num / den
+    gz_new[..., iy, ix] = num / den
 
     ws = (zs - gz_new[-1]) * rdt
     return _mono_up(gz_new), ws

@@ -136,7 +136,7 @@ class StagedStepper:
         self.k_split = dyn.k_split
         self.n_split = dyn.n_split
         self.npz = dyn.npz
-        self._nx = dyn.nx
+        self._ny, self._nx = ny, nx = marshal.tile.ny, marshal.tile.nx
         self._zeros = zeros = marshal.zeros
         self._nf = nf = marshal.nf
         dtype, device = marshal.dtype, marshal.device
@@ -168,25 +168,17 @@ class StagedStepper:
             zero-padded internal state (the keys _unpad reads; every
             other key of the state, consv_te's te0_2d included, has a zero
             cotangent, which `vjp` supplies for a missing key)."""
-            n = dyn.nx
-            jc = n + 2 * NG
-            jb = jc + 1
-            cs = slice(NG, NG + n)
-            bs = slice(NG, NG + n + 1)
-
-            def z3(jy, jx, sy, sx, x):
-                out = zeros(npz, nf, jy, jx)
-                out[:, :, sy, sx] = x
+            def z3(x, sy=0, sx=0):
+                out = zeros(npz, nf, ny + sy + 2 * NG, nx + sx + 2 * NG)
+                out[:, :, NG:NG + ny + sy, NG:NG + nx + sx] = x
                 return out
 
-            st = dict(u=z3(jb, jc, bs, cs, pb["u"]),
-                      v=z3(jc, jb, cs, bs, pb["v"]),
-                      pt=z3(jc, jc, cs, cs, pb["t"]),
-                      delp=z3(jc, jc, cs, cs, pb["delp"]))
+            st = dict(u=z3(pb["u"], sy=1), v=z3(pb["v"], sx=1),
+                      pt=z3(pb["t"]), delp=z3(pb["delp"]))
             if not dyn.hydrostatic:
-                st["w"] = z3(jc, jc, cs, cs, pb["w"])
-                st["delz"] = z3(jc, jc, cs, cs, pb["delz"])
-            q = [z3(jc, jc, cs, cs, pb[name]) for name in tracers]
+                st["w"] = z3(pb["w"])
+                st["delz"] = z3(pb["delz"])
+            q = [z3(pb[name]) for name in tracers]
             return st, q
 
         self._stages = dict(prep=prep, pre=pre, post=post,
@@ -217,19 +209,18 @@ class StagedStepper:
     def _expand_carry(self, c):
         """The full carry from a pruned checkpoint, zeros for the pruned
         fields (a valid and exact linearization point for them)."""
-        n = self._nx
-        jc = n + 2 * NG
-        jb = jc + 1
+        ny, nx = self._ny, self._nx
+        jcy, jcx = ny + 2 * NG, nx + 2 * NG
         npz = self.npz
         nf = self._nf
         shapes = dict(
-            pe=(npz + 1, nf, jc, jc), peln=(npz + 1, nf, jc, jc),
-            pk=(npz + 1, nf, jc, jc), pkz=(npz, nf, jc, jc),
-            uc=(npz, nf, jc, jb), vc=(npz, nf, jb, jc),
-            divgd=(npz, nf, jb, jb), w=(npz, nf, jc, jc),
-            mfx=(npz, nf, n, n + 1), mfy=(npz, nf, n + 1, n),
-            cx=(npz, nf, jc, n + 1), cy=(npz, nf, n + 1, jc),
-            heat_source=(npz, nf, n, n),
+            pe=(npz + 1, nf, jcy, jcx), peln=(npz + 1, nf, jcy, jcx),
+            pk=(npz + 1, nf, jcy, jcx), pkz=(npz, nf, jcy, jcx),
+            uc=(npz, nf, jcy, jcx + 1), vc=(npz, nf, jcy + 1, jcx),
+            divgd=(npz, nf, jcy + 1, jcx + 1), w=(npz, nf, jcy, jcx),
+            mfx=(npz, nf, ny, nx + 1), mfy=(npz, nf, ny + 1, nx),
+            cx=(npz, nf, jcy, nx + 1), cy=(npz, nf, ny + 1, jcx),
+            heat_source=(npz, nf, ny, nx),
         )
         full = dict(c)
         for k in self._prune:

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.sw_core import F2P, SL
+from ..ops.sw_core import F2P, SL, cells, tile_of
 from ..ops.transport import fv_tp_2d
 from ..parallel import halo
 from . import freeze
@@ -21,14 +21,13 @@ from .freeze import fbool
 
 def tracer_2d(q, dp1, mfx, mfy, cx, cy, grid, topo, cfg, npx, hord_tr,
               nord_tr=0, trdm=0.0):
-    """Advect tracers q (list of (npz,6,jc,jc) tensors) over one mdt.
+    """Advect tracers q (list of (npz,nf,jcy,jcx) tensors) over one mdt.
 
     dp1: delp BEFORE dyn_core; mfx/mfy/cx/cy: accumulated fluxes/courant;
     nord_tr/trdm: the del-n damping of the first sub-cycle
     (fv_tracer2d_nlm.F90, damp_c = trdm2).  Returns the updated tracer
     list."""
-    n = npx - 1
-    npy = npx
+    T, X, Y = tile_of(grid, npx)
     p = F2P
     nsplt = max(1, cfg.q_split)
     sin_sg = grid["sin_sg"]
@@ -38,30 +37,29 @@ def tracer_2d(q, dp1, mfx, mfy, cx, cy, grid, topo, cfg, npx, hord_tr,
 
     # area fluxes from the accumulated courant numbers (:355-375)
     selx = fbool(cx > 0.0)
-    xfx = cx * dy[..., :, SL(1, npx)] * torch.where(
-        selx,
-        dxa[..., :, p(0):p(n) + 1] * sin_sg[2][..., :, p(0):p(n) + 1],
-        dxa[..., :, p(1):p(npx) + 1] * sin_sg[0][..., :, p(1):p(npx) + 1])
+    cm, c0 = SL(0, T.nx), SL(1, X)
+    xfx = cx * dy[..., :, SL(1, X)] * torch.where(
+        selx, dxa[..., :, cm] * sin_sg[2][..., :, cm],
+        dxa[..., :, c0] * sin_sg[0][..., :, c0])
     sely = fbool(cy > 0.0)
-    yfx = cy * dx[..., SL(1, npy), :] * torch.where(
-        sely,
-        dya[..., p(0):p(n) + 1, :] * sin_sg[3][..., p(0):p(n) + 1, :],
-        dya[..., p(1):p(npy) + 1, :] * sin_sg[1][..., p(1):p(npy) + 1, :])
+    rm, r0 = SL(0, T.ny), SL(1, Y)
+    yfx = cy * dx[..., SL(1, Y), :] * torch.where(
+        sely, dya[..., rm, :] * sin_sg[3][..., rm, :],
+        dya[..., r0, :] * sin_sg[1][..., r0, :])
 
     frac = 1.0 / nsplt
     if nsplt != 1:
         cx, xfx, mfx = cx * frac, xfx * frac, mfx * frac
         cy, yfx, mfy = cy * frac, yfx * frac, mfy * frac
 
-    cs = SL(1, n)
+    cs = cells(grid)
     qs = torch.stack(q, dim=0)          # tracers as a leading batch dim
     for it in range(nsplt):
         dp2 = dp1.clone()
-        dp2[..., cs, cs] += (((mfx[..., :, :-1] - mfx[..., :, 1:])
-                              + (mfy[..., :-1, :] - mfy[..., 1:, :]))
-                             * rarea[..., cs, cs])
-        ra_x = area[..., :, cs] + (xfx[..., :, :-1] - xfx[..., :, 1:])
-        ra_y = area[..., cs, :] + (yfx[..., :-1, :] - yfx[..., 1:, :])
+        dp2[cs] += (((mfx[..., :, :-1] - mfx[..., :, 1:])
+                     + (mfy[..., :-1, :] - mfy[..., 1:, :])) * rarea[cs])
+        ra_x = area[..., :, cs[2]] + (xfx[..., :, :-1] - xfx[..., :, 1:])
+        ra_y = area[..., cs[1], :] + (yfx[..., :-1, :] - yfx[..., 1:, :])
         qs = halo.fill_halo_center(qs, topo)
 
         if it == 0 and trdm > 1.0e-4:
@@ -78,11 +76,11 @@ def tracer_2d(q, dp1, mfx, mfy, cx, cy, grid, topo, cfg, npx, hord_tr,
             fx, fy = torch.stack(fxl), torch.stack(fyl)
         else:
             fx, fy = tp(qs)
-        q_c = (qs[..., cs, cs] * dp1[..., cs, cs]
+        q_c = (qs[cs] * dp1[cs]
                + ((fx[..., :, :-1] - fx[..., :, 1:])
-                  + (fy[..., :-1, :] - fy[..., 1:, :])) * rarea[..., cs, cs]
-               ) / dp2[..., cs, cs]
+                  + (fy[..., :-1, :] - fy[..., 1:, :])) * rarea[cs]
+               ) / dp2[cs]
         qs = qs.clone()
-        qs[..., cs, cs] = q_c
+        qs[cs] = q_c
         dp1 = dp2
     return list(qs.unbind(0))

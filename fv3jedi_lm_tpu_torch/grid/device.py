@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from .metrics import GridMetrics
+from .tile import Tile
 
 _NAMES = (
     "dx", "dy", "dxa", "dya", "dxc", "dyc", "area", "area_c",
@@ -47,4 +48,6 @@ def to_device(g: GridMetrics, dtype: torch.dtype,
     d["da_max"] = float(g.da_max)
     d["da_min_c"] = float(g.da_min_c)
     d["da_max_c"] = float(g.da_max_c)
+    # the whole face: every edge and corner treatment applies
+    d["tile"] = Tile(n, 0, 0, n, n)
     return d

@@ -61,76 +61,130 @@ _DTYPES = {"float64": torch.float64, "float32": torch.float32}
 class Marshal:
     """Compute-domain dicts to and from the padded internal state (halo NG)
     of one model's configuration, dtype and device, over its `nf` faces
-    (6, or 1 on a rank of a face decomposition)."""
+    and its `tile` of each (the whole face on one process)."""
 
-    def __init__(self, dyn, dtype, device, topo, tracers, nf):
+    def __init__(self, dyn, dtype, device, topo, tracers, nf, tile):
         self.dyn = dyn
         self.dtype = dtype
         self.device = device
         self.topo = topo
         self.tracers = tracers
         self.nf = nf
+        self.tile = tile
 
     def zeros(self, *shape):
         return torch.zeros(shape, dtype=self.dtype, device=self.device)
+
+    def check(self, name, x, sy=0, sx=0, lead=None):
+        """Raise unless compute-domain field `name` has the model's shape:
+        (lead..., nf, ny + sy, nx + sx), lead (npz,) by default."""
+        T = self.tile
+        want = (lead if lead is not None else (self.dyn.npz,)) + (
+            self.nf, T.ny + sy, T.nx + sx)
+        if tuple(x.shape) != want:
+            raise ValueError(f"{name} of shape {tuple(x.shape)}: this model "
+                             f"holds {want} (faces x {T})")
 
     def pad(self, prog: dict):
         """Compute-domain dict -> padded (halo NG) internal state; halos
         enter zeroed and are filled inside fv_dynamics, shared D-grid edge
         values made single-owner consistent."""
-        dyn = self.dyn
-        n = dyn.nx
-        npz = dyn.npz
-        jc = n + 2 * NG
-        jb = jc + 1
-        cs = slice(NG, NG + n)
-        bs = slice(NG, NG + n + 1)
+        ny, nx = self.tile.ny, self.tile.nx
+        npz = self.dyn.npz
 
-        def pad3(x, jy, jx, sy, sx):
-            out = self.zeros(npz, self.nf, jy, jx)
-            out[:, :, sy, sx] = x.to(self.dtype)
+        def pad3(name, sy=0, sx=0):
+            x = prog[name]
+            self.check(name, x, sy, sx)
+            out = self.zeros(npz, self.nf, ny + sy + 2 * NG, nx + sx + 2 * NG)
+            out[:, :, NG:NG + ny + sy, NG:NG + nx + sx] = x.to(self.dtype)
             return out
 
         st = {}
-        st["u"] = pad3(prog["u"], jb, jc, bs, cs)
-        st["v"] = pad3(prog["v"], jc, jb, cs, bs)
+        st["u"] = pad3("u", sy=1)
+        st["v"] = pad3("v", sx=1)
         st["u"], st["v"] = halo.fix_shared_edges_dgrid(st["u"], st["v"],
                                                        self.topo)
-        st["pt"] = pad3(prog["t"], jc, jc, cs, cs)
-        st["delp"] = pad3(prog["delp"], jc, jc, cs, cs)
+        st["pt"] = pad3("t")
+        st["delp"] = pad3("delp")
         if "w" in prog:
-            st["w"] = pad3(prog["w"], jc, jc, cs, cs)
-            st["delz"] = pad3(prog["delz"], jc, jc, cs, cs)
+            st["w"] = pad3("w")
+            st["delz"] = pad3("delz")
         else:
-            st["w"] = self.zeros(npz, self.nf, jc, jc)
-        q = [pad3(prog[name], jc, jc, cs, cs) for name in self.tracers]
+            st["w"] = self.zeros(npz, self.nf, ny + 2 * NG, nx + 2 * NG)
+        q = [pad3(name) for name in self.tracers]
         return st, q
 
     def unpad(self, st: dict, q: list) -> dict:
-        n = self.dyn.nx
-        cs = slice(NG, NG + n)
-        bs = slice(NG, NG + n + 1)
+        ny, nx = self.tile.ny, self.tile.nx
+        cy, cx = slice(NG, NG + ny), slice(NG, NG + nx)
+        by, bx = slice(NG, NG + ny + 1), slice(NG, NG + nx + 1)
         out = {
-            "u": st["u"][:, :, bs, cs],
-            "v": st["v"][:, :, cs, bs],
-            "t": st["pt"][:, :, cs, cs],
-            "delp": st["delp"][:, :, cs, cs],
+            "u": st["u"][:, :, by, cx],
+            "v": st["v"][:, :, cy, bx],
+            "t": st["pt"][:, :, cy, cx],
+            "delp": st["delp"][:, :, cy, cx],
         }
         for name, qq in zip(self.tracers, q):
-            out[name] = qq[:, :, cs, cs]
+            out[name] = qq[:, :, cy, cx]
         if "delz" in st:
-            out["w"] = st["w"][:, :, cs, cs]
-            out["delz"] = st["delz"][:, :, cs, cs]
+            out["w"] = st["w"][:, :, cy, cx]
+            out["delz"] = st["delz"][:, :, cy, cx]
         if "omga" in st:
             # the vertical pressure velocity (compute_omega)
-            out["omga"] = st["omga"][:, :, cs, cs]
+            out["omga"] = st["omga"][:, :, cy, cx]
+        return out
+
+    def share(self, d: dict) -> dict:
+        """d with the D-grid lines two tiles of a face share taken from
+        the tile that owns them, the north (east) one: after a step every
+        copy holds the value the whole face holds there.  `d` itself with
+        whole faces."""
+        T = self.tile
+        if getattr(self.topo, "faces", None) is None or T.whole:
+            return d
+        lead = (self.dyn.npz, self.nf)
+
+        def padded(x, sy, sx):
+            out = self.zeros(*lead, T.ny + sy + 2 * NG, T.nx + sx + 2 * NG)
+            out[..., NG:NG + T.ny + sy, NG:NG + T.nx + sx] = x
+            return out
+
+        u, v = halo.share_tile_lines(padded(d["u"], 1, 0),
+                                     padded(d["v"], 0, 1), self.topo)
+        return dict(d, u=u[..., NG:NG + T.ny + 1, NG:NG + T.nx],
+                    v=v[..., NG:NG + T.ny, NG:NG + T.nx + 1])
+
+    def owned(self, d: dict) -> dict:
+        """d with the copies of the shared lines this tile does not own
+        (its north u row, its east v column, inside the face) cut off:
+        summed over the ranks, a product of owned dicts is the whole
+        cube's."""
+        T = self.tile
+        out = dict(d)
+        if "u" in d and not T.north:
+            out["u"] = d["u"][..., :-1, :]
+        if "v" in d and not T.east:
+            out["v"] = d["v"][..., :, :-1]
+        return out
+
+    def own(self, d: dict) -> dict:
+        """d with the copies of the shared lines this tile does not own
+        zeroed: a cotangent counts each line once, as on the whole face."""
+        T = self.tile
+        out = dict(d)
+        if "u" in d and not T.north:
+            out["u"] = torch.cat([d["u"][..., :-1, :],
+                                  torch.zeros_like(d["u"][..., -1:, :])], -2)
+        if "v" in d and not T.east:
+            out["v"] = torch.cat([d["v"][..., :, :-1],
+                                  torch.zeros_like(d["v"][..., :, -1:])], -1)
         return out
 
     def pad_phis(self, phis):
-        n = self.dyn.nx
-        jc = n + 2 * NG
-        phis_p = self.zeros(self.nf, jc, jc)
-        phis_p[:, NG:NG + n, NG:NG + n] = phis.to(self.dtype)
+        ny, nx = self.tile.ny, self.tile.nx
+        self.check("phis", phis, lead=())
+        phis_p = self.zeros(self.nf, ny + 2 * NG, nx + 2 * NG)
+        phis_p[:, NG:NG + ny, NG:NG + nx] = phis.to(self.dtype)
         return halo.fill_halo_center(phis_p, self.topo)
 
 
@@ -138,10 +192,10 @@ class LinearModel:
     """Facade object: `create` once per (resolution, config, device), then
     step.  The grid lives on `device`, the GPU unless the caller passes
     `device="cpu"`; every state passed in must live there too.  With
-    `faces` (a parallel/faces.FaceGroup) the model is one rank of a face
-    decomposition: it holds its face's grid, its states are that face's
-    (npz, 1, ...) fields (`parallel.faces.split_faces`), and its halos
-    and global sums are exchanged with the other five ranks."""
+    `faces` (a parallel/faces.FaceGroup) the model is one rank of a
+    decomposition: it holds the grid of its faces' tiles, its states are
+    those tiles' (npz, nf, ...) fields (`parallel.faces.split_faces`),
+    and its halos and global sums are exchanged with the other ranks."""
 
     def __init__(self, cfg: LMConfig, device="cuda", ak=None, bk=None,
                  big=None, faces=None):
@@ -151,10 +205,6 @@ class LinearModel:
                 raise ValueError(f"a model on {device} with a face group on "
                                  f"{faces.device}")
             device = faces.device
-            if cfg.do_phy_trb or cfg.do_phy_mst:
-                raise NotImplementedError(
-                    "the physics on a face decomposition is not ported "
-                    "(ROADMAP Queue 1 item 9)")
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "LinearModel runs on the GPU by default and this host has no "
@@ -176,12 +226,13 @@ class LinearModel:
             big = 1.0e30 if self.dtype == torch.float64 else 1.0e8
         gm = build_grid(dyn.npx, big=big)
         self.faces = faces
-        self.nf = 6 if faces is None else 1
+        self.nf = 6 if faces is None else faces.nf
         self.topo = gm.topo
         self.grid = to_device(gm, self.dtype, self.device)
         if faces is not None:
             self.topo = FaceTopology(gm.topo, faces)
-            self.grid = slice_grid(self.grid, faces.face)
+            self.grid = slice_grid(self.grid, faces, self.topo.tile)
+        self.tile = self.grid["tile"]
         if ak is None:
             ak, bk = default_ak_bk(dyn.npz, ptop=dyn.ptop)
         np_dtype = np.float64 if self.dtype == torch.float64 else np.float32
@@ -193,7 +244,7 @@ class LinearModel:
         # reference to the model: a dropped model is freed at once, with
         # its cache (the reference's `delete`, fv3jedi_lm_mod.F90:223)
         self._marshal = Marshal(dyn, self.dtype, self.device, self.topo,
-                                self.tracers, self.nf)
+                                self.tracers, self.nf, self.tile)
         self._stepper = None
         # per-trajectory checkpoints and tapes (the reference's saveltraj
         # cache, fv3jedi_lm_utils_mod.F90:30): the whole window's with
@@ -210,41 +261,47 @@ class LinearModel:
             self._moist = Moist(dyn, self.ak, self.bk, cfg.dt,
                                 cfg.do_phy_mst)
 
+    def owned(self, d: dict) -> dict:
+        """d without the copies of the D-grid lines two tiles share that
+        this tile does not own (Marshal.owned): a dot product of owned
+        dicts summed over the ranks is the whole cube's."""
+        return self._marshal.owned(d)
+
     @classmethod
     def create(cls, cfg: LMConfig, device="cuda", ak=None, bk=None,
                big=None, faces=None) -> "LinearModel":
         """Reference `create(dt,npx,npy,npz,ptop,ak,bk)`.  The model runs on
         the GPU; `device="cpu"` is the only way to run it on the CPU, and
         without a CUDA device a call that names none raises.  `faces`: this
-        rank's FaceGroup, for one face of a face decomposition (dynamics
-        only: the physics raise NotImplementedError)."""
+        rank's FaceGroup, for its faces and tile of a decomposition (a face
+        whose cells its layout does not split raises ValueError)."""
         return cls(cfg, device, ak, bk, big=big, faces=faces)
 
     def zero_pert(self) -> dict:
         """A zero perturbation (allocate_pert, fv3jedi_lm_utils_mod.F90:75)."""
-        n = self.cfg.dyn.nx
+        ny, nx = self.tile.ny, self.tile.nx
         npz = self.cfg.dyn.npz
         zeros = self._marshal.zeros
         nf = self.nf
-        p = {f: zeros(npz, nf, n, n) for f in ("t", "delp") + self.tracers}
-        p["u"] = zeros(npz, nf, n + 1, n)
-        p["v"] = zeros(npz, nf, n, n + 1)
+        p = {f: zeros(npz, nf, ny, nx) for f in ("t", "delp") + self.tracers}
+        p["u"] = zeros(npz, nf, ny + 1, nx)
+        p["v"] = zeros(npz, nf, ny, nx + 1)
         if not self.cfg.dyn.hydrostatic:
-            p["w"] = zeros(npz, nf, n, n)
-            p["delz"] = zeros(npz, nf, n, n)
+            p["w"] = zeros(npz, nf, ny, nx)
+            p["delz"] = zeros(npz, nf, ny, nx)
         return p
 
     def rest_traj(self, t0: float = 280.0, ps0: float = 1.0e5) -> dict:
         """Resting isothermal trajectory (for tests/benchmarks)."""
         tr = self.zero_pert()
-        n = self.cfg.dyn.nx
+        ny, nx = self.tile.ny, self.tile.nx
         pe = (self.ak[:, None, None, None]
               + self.bk[:, None, None, None] * ps0)
-        ones = np.ones((1, self.nf, n, n))
+        ones = np.ones((1, self.nf, ny, nx))
         tr["delp"] = torch.as_tensor((pe[1:] - pe[:-1]) * ones,
                                      dtype=self.dtype, device=self.device)
         tr["t"] = torch.full_like(tr["t"], t0)
-        tr["phis"] = self._marshal.zeros(self.nf, n, n)
+        tr["phis"] = self._marshal.zeros(self.nf, ny, nx)
         if not self.cfg.dyn.hydrostatic:
             # layer depths in discrete balance with the SIM1 equation of
             # state: rho*R*T == pm, so the NH solver starts with zero
@@ -257,7 +314,7 @@ class LinearModel:
                 -(dm / GRAV) * RGAS * t0 / pm * ones,
                 dtype=self.dtype, device=self.device)
         for f in SURFACE_2D:
-            tr[f] = self._marshal.zeros(self.nf, n, n)
+            tr[f] = self._marshal.zeros(self.nf, ny, nx)
         return tr
 
     # -- stepping ----------------------------------------------------------------
@@ -276,7 +333,7 @@ class LinearModel:
         with torch.no_grad():
             out = self._step_fn({k: traj[k] for k in self.prog_3d},
                                 traj["phis"])
-            out = self._physics_nl(out, traj, True)[0]
+            out = self._marshal.share(self._physics_nl(out, traj, True)[0])
         out["phis"] = traj["phis"]
         for f in SURFACE_2D + MOIST_3D:
             # static surface/cloud trajectory fields pass through; a field
@@ -361,20 +418,19 @@ class LinearModel:
     def _moist_sfc(self, traj):
         """Surface and cloud trajectory fields the moist driver reads
         (fv3jedi_lm_moist_mod.F90 set_ltraj:721-737)."""
-        n = self.cfg.dyn.nx
         sfc = self._sfc(traj, ("ts", "frland", "kcbl", "khu", "khl"),
-                        (self.nf, n, n))
+                        (self.nf, self.tile.ny, self.tile.nx))
         sfc.update({f: traj[f] for f in MOIST_3D if f in traj})
         return sfc
 
     def _turb_ltraj(self, prog: dict, traj: dict):
         """Frozen-K turbulence coefficients linearized at `prog`, the state
         the physics step reaches the turbulence with."""
-        n = self.cfg.dyn.nx
-        sfc = self._sfc(traj, SURFACE_2D, (self.nf, n, n))
+        cells = (self.nf, self.tile.ny, self.tile.nx)
+        sfc = self._sfc(traj, SURFACE_2D, cells)
         # 3-D cloud condensate (bldriver QLTOT)
         sfc.update(self._sfc(traj, ("qls", "qcn"),
-                             (self.cfg.dyn.npz, self.nf, n, n)))
+                             (self.cfg.dyn.npz,) + cells))
         return self._turb.set_ltraj(dict(prog, **sfc), self.cfg.dt,
                                     do_phy_mst=self.cfg.do_phy_mst)
 
@@ -382,17 +438,16 @@ class LinearModel:
         """The (linear) frozen-K turbulence diffusion on a prog dict, then
         the shared D-edges made single-owner again through `_pad` (the
         reference refreshes them at the next dynamics entry)."""
-        n = self.cfg.dyn.nx
+        ny, nx = self.tile.ny, self.tile.nx
         fs = {k: prog[k] for k in PHYS_FIELDS[2:]}
-        fs["u"] = prog["u"][..., :n, :]
-        fs["v"] = prog["v"][..., :, :n]
+        fs["u"] = prog["u"][..., :ny, :]
+        fs["v"] = prog["v"][..., :, :nx]
         out = self._turb.apply(ltraj, fs)
-        u = torch.cat([out["u"], prog["u"][..., n:, :]], -2)
-        v = torch.cat([out["v"], prog["v"][..., :, n:]], -1)
+        u = torch.cat([out["u"], prog["u"][..., ny:, :]], -2)
+        v = torch.cat([out["v"], prog["v"][..., :, nx:]], -1)
         st, _ = self._marshal.pad(dict(prog, u=u, v=v))
-        cs = slice(NG, NG + n)
-        bs = slice(NG, NG + n + 1)
-        return dict(prog, u=st["u"][:, :, bs, cs], v=st["v"][:, :, cs, bs],
+        un = self._marshal.unpad(st, [])
+        return dict(prog, u=un["u"], v=un["v"],
                     **{k: out[k] for k in PHYS_FIELDS[2:]})
 
     def _turb_apply_transpose(self, ltraj, pb):
@@ -421,7 +476,7 @@ class LinearModel:
             with scope("step_tl.turb"), timing.timing("step_tl.turb",
                                                       lambda: p):
                 p = self._phys_apply(ltraj, p)
-        return p
+        return self._marshal.share(p)
 
     def step_ad(self, traj: dict, pert_ad: dict) -> dict:
         """Adjoint step: pert_bar = M(traj)^T pert_ad (fv3jedi_lm_mod.F90:
@@ -429,7 +484,8 @@ class LinearModel:
         at the same checkpoints and tapes as step_tl, so <M dx, dy> ==
         <dx, M^T dy> to rounding."""
         prog = {k: traj[k] for k in self.prog_3d}
-        pb = {k: pert_ad[k].to(self.dtype) for k in self.prog_3d}
+        pb = self._marshal.own({k: pert_ad[k].to(self.dtype)
+                                for k in self.prog_3d})
         cks, tapes, mpack, ltraj = self._ckpts(traj)
         if self._turb is not None:
             with scope("step_ad.turb"), timing.timing("step_ad.turb",
@@ -440,7 +496,8 @@ class LinearModel:
                                                        lambda: pb):
                 pb = self._moist.apply_ad(*mpack, pb)
         with scope("step_ad"), timing.timing("step_ad.dyn", lambda: True):
-            return self._staged().ad(prog, traj["phis"], pb, cks, tapes)
+            return self._marshal.share(
+                self._staged().ad(prog, traj["phis"], pb, cks, tapes))
 
     # -- the 4D-Var window ----------------------------------------------------
     #
@@ -452,16 +509,9 @@ class LinearModel:
     # calls (the tapenade_iter checkpointing cache, tapenade_iter.F90:
     # 118-199).
 
-    def _whole_cube(self, what):
-        if self.faces is not None:
-            raise NotImplementedError(
-                f"{what} on a face decomposition is not ported (ROADMAP "
-                "Queue 1 item 9)")
-
     def run_nl(self, traj0: dict) -> list:
         """Propagate the window: returns [x_0, x_1, ..., x_nt]; trajs[n] is
         the linearization state of window step n."""
-        self._whole_cube("run_nl")
         trajs = [traj0]
         tr = traj0
         for _ in range(self.cfg.nt):
@@ -471,7 +521,6 @@ class LinearModel:
 
     def run_tl(self, trajs: list, pert: dict) -> dict:
         """M(x_{nt-1}) ... M(x_0) applied to `pert`."""
-        self._whole_cube("run_tl")
         p = pert
         for n in range(self.cfg.nt):
             p = self.step_tl(trajs[n], p)
@@ -479,7 +528,6 @@ class LinearModel:
 
     def run_ad(self, trajs: list, pert_ad: dict) -> dict:
         """The transpose of run_tl: the per-step adjoints in reverse."""
-        self._whole_cube("run_ad")
         pb = pert_ad
         for n in reversed(range(self.cfg.nt)):
             pb = self.step_ad(trajs[n], pb)

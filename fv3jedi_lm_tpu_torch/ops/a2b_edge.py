@@ -6,8 +6,11 @@ treatment and 3-way great-circle corner extrapolation; `a2b_ord2`, the
 4-cell average with 3-cell corner means and edge-factor blends (d_ext and
 omega).
 
-qin: (..., 6, jc, jc) padded, halo-filled.  Returns a B-grid tensor
-(..., 6, jb, jb); values valid on the compute corners [ng : ng+n+1]^2.
+qin: (..., nf, jcy, jcx) padded, halo-filled, on the model's tile
+(grid["tile"]: the whole face on one process); the edge and corner
+treatments act on the face edges and cube corners the tile owns.
+Returns a B-grid tensor (..., nf, jcy+1, jcx+1); values valid on the
+tile's compute corners.
 """
 
 from __future__ import annotations
@@ -24,9 +27,10 @@ R3 = 1.0 / 3.0
 
 
 def _corner_values(qin, grid):
-    """3-way extrapolated corner values (sw, se, ne, nw)."""
-    n = qin.shape[-1] - 2 * NG
-    npx = n + 1
+    """3-way extrapolated values at the cube corners the tile owns:
+    {(j, i) padded B index: value} for sw, se, ne, nw."""
+    T = grid["tile"]
+    X, Y = T.nx + 1, T.ny + 1
 
     def p(i):
         return i - 1 + NG
@@ -38,157 +42,207 @@ def _corner_values(qin, grid):
         q2 = qin[..., p(c2[1]), p(c2[0])]
         return q1 + cec[:, ci, k] * (q1 - q2)
 
-    sw = R3 * (ext(0, 0, (1, 1), (2, 2)) + ext(0, 1, (0, 1), (-1, 2))
-               + ext(0, 2, (1, 0), (2, -1)))
-    se = R3 * (ext(1, 0, (npx - 1, 1), (npx - 2, 2))
-               + ext(1, 1, (npx - 1, 0), (npx - 2, -1))
-               + ext(1, 2, (npx, 1), (npx + 1, 2)))
-    ne = R3 * (ext(2, 0, (npx - 1, npx - 1), (npx - 2, npx - 2))
-               + ext(2, 1, (npx, npx - 1), (npx + 1, npx - 2))
-               + ext(2, 2, (npx - 1, npx), (npx - 2, npx + 1)))
-    nw = R3 * (ext(3, 0, (1, npx - 1), (2, npx - 2))
-               + ext(3, 1, (0, npx - 1), (-1, npx - 2))
-               + ext(3, 2, (1, npx), (2, npx + 1)))
-    return sw, se, ne, nw
+    out = {}
+    if T.south and T.west:
+        out[p(1), p(1)] = R3 * (ext(0, 0, (1, 1), (2, 2))
+                                + ext(0, 1, (0, 1), (-1, 2))
+                                + ext(0, 2, (1, 0), (2, -1)))
+    if T.south and T.east:
+        out[p(1), p(X)] = R3 * (ext(1, 0, (X - 1, 1), (X - 2, 2))
+                                + ext(1, 1, (X - 1, 0), (X - 2, -1))
+                                + ext(1, 2, (X, 1), (X + 1, 2)))
+    if T.north and T.east:
+        out[p(Y), p(X)] = R3 * (ext(2, 0, (X - 1, Y - 1), (X - 2, Y - 2))
+                                + ext(2, 1, (X, Y - 1), (X + 1, Y - 2))
+                                + ext(2, 2, (X - 1, Y), (X - 2, Y + 1)))
+    if T.north and T.west:
+        out[p(Y), p(1)] = R3 * (ext(3, 0, (1, Y - 1), (2, Y - 2))
+                                + ext(3, 1, (0, Y - 1), (-1, Y - 2))
+                                + ext(3, 2, (1, Y), (2, Y + 1)))
+    return out
 
 
 def _edge_lines(q, d, ic, ew, ee):
     """Interface values along the last axis (width ic+1): interior PPM form
-    plus the one-sided cubic face-edge values (a2b_edge_nlm.F90:160-170)."""
+    plus the one-sided cubic face-edge values (a2b_edge_nlm.F90:160-170)
+    at the west edge ew and the east edge ee, each where the tile owns it
+    (None where not)."""
     qx = q.new_zeros(q.shape[:-1] + (ic + 1,))
     qx[..., 2:ic - 1] = (B2 * (q[..., 0:ic - 3] + q[..., 3:ic])
                          + B1 * (q[..., 1:ic - 2] + q[..., 2:ic - 1]))
-    g_in = d[..., ew + 1] / d[..., ew]
-    g_ou = d[..., ew - 2] / d[..., ew - 1]
-    qx[..., ew] = 0.5 * (
-        ((2.0 + g_in) * q[..., ew] - q[..., ew + 1]) / (1.0 + g_in)
-        + ((2.0 + g_ou) * q[..., ew - 1] - q[..., ew - 2]) / (1.0 + g_ou))
-    qx[..., ew + 1] = (
-        (3.0 * (g_in * q[..., ew] + q[..., ew + 1])
-         - (g_in * qx[..., ew] + qx[..., ew + 2])) / (2.0 + 2.0 * g_in))
-    g_in = d[..., ee - 2] / d[..., ee - 1]
-    g_ou = d[..., ee + 1] / d[..., ee]
-    qx[..., ee] = 0.5 * (
-        ((2.0 + g_in) * q[..., ee - 1] - q[..., ee - 2]) / (1.0 + g_in)
-        + ((2.0 + g_ou) * q[..., ee] - q[..., ee + 1]) / (1.0 + g_ou))
-    qx[..., ee - 1] = (
-        (3.0 * (q[..., ee - 2] + g_in * q[..., ee - 1])
-         - (g_in * qx[..., ee] + qx[..., ee - 2])) / (2.0 + 2.0 * g_in))
+    if ew is not None:
+        g_in = d[..., ew + 1] / d[..., ew]
+        g_ou = d[..., ew - 2] / d[..., ew - 1]
+        qx[..., ew] = 0.5 * (
+            ((2.0 + g_in) * q[..., ew] - q[..., ew + 1]) / (1.0 + g_in)
+            + ((2.0 + g_ou) * q[..., ew - 1] - q[..., ew - 2]) / (1.0 + g_ou))
+        qx[..., ew + 1] = (
+            (3.0 * (g_in * q[..., ew] + q[..., ew + 1])
+             - (g_in * qx[..., ew] + qx[..., ew + 2])) / (2.0 + 2.0 * g_in))
+    if ee is not None:
+        g_in = d[..., ee - 2] / d[..., ee - 1]
+        g_ou = d[..., ee + 1] / d[..., ee]
+        qx[..., ee] = 0.5 * (
+            ((2.0 + g_in) * q[..., ee - 1] - q[..., ee - 2]) / (1.0 + g_in)
+            + ((2.0 + g_ou) * q[..., ee] - q[..., ee + 1]) / (1.0 + g_ou))
+        qx[..., ee - 1] = (
+            (3.0 * (q[..., ee - 2] + g_in * q[..., ee - 1])
+             - (g_in * qx[..., ee] + qx[..., ee - 2])) / (2.0 + 2.0 * g_in))
     return qx
 
 
+def _inner(T, icy, icx):
+    """The B rows and columns that take the interior formula: those of
+    the tile (B 2..npx-1 on the owned edges), out into the halo as far as
+    the 4-point stencils reach where the tile has no face edge."""
+    rows = slice(NG + 1 if T.south else 2, NG + T.ny if T.north else icy - 1)
+    cols = slice(NG + 1 if T.west else 2, NG + T.nx if T.east else icx - 1)
+    return rows, cols
+
+
+def _edge_span(T, own_lo, own_hi, ic, n):
+    """The B lines along a face edge that take the edge-factor blend:
+    B 2..npx-1 of the face, out into the halo where the tile does not own
+    the end, as far as the blend's cells reach."""
+    return slice(NG + 1 if own_lo else 1, NG + n if own_hi else ic)
+
+
 def a2b_ord4(qin, grid):
-    ic = qin.shape[-1]
-    n = ic - 2 * NG
-    jb = ic + 1
+    T = grid["tile"]
+    icy, icx = qin.shape[-2:]
+    jby, jbx = icy + 1, icx + 1
     dxa = grid["dxa"]
     dya = grid["dya"]
-    ew = NG          # west edge B index
-    ee = NG + n
+    ew = NG                   # west/south edge B index
+    ee_x = NG + T.nx          # east edge B index
+    ee_y = NG + T.ny          # north edge B index
 
-    qout = qin.new_zeros(qin.shape[:-2] + (jb, jb))
+    qout = qin.new_zeros(qin.shape[:-2] + (jby, jbx))
 
     # ---- corner values ----
-    sw, se, ne, nw = _corner_values(qin, grid)
-    qout[..., ew, ew] = sw
-    qout[..., ew, ee] = se
-    qout[..., ee, ee] = ne
-    qout[..., ee, ew] = nw
+    for (j, i), val in _corner_values(qin, grid).items():
+        qout[..., j, i] = val
 
     # ---- interface values in x and in y ----
-    qx = _edge_lines(qin, dxa, ic, ew, ee)
-    qy = _edge_lines(qin.transpose(-1, -2), dya.transpose(-1, -2), ic, ew,
-                     ee).transpose(-1, -2)   # (..., jb(y), jc(x))
+    qx = _edge_lines(qin, dxa, icx, ew if T.west else None,
+                     ee_x if T.east else None)
+    qy = _edge_lines(qin.transpose(-1, -2), dya.transpose(-1, -2), icy,
+                     ew if T.south else None, ee_y if T.north else None
+                     ).transpose(-1, -2)   # (..., jb(y), jc(x))
 
     # ---- edge-line qout values via edge factors ----
-    inn = slice(NG + 1, NG + n)
-    lo = slice(NG, NG + n - 1)
-
-    def blend(f, q2):
+    def blend(f, q2, inn):
+        lo = slice(inn.start - 1, inn.stop - 1)
         return f[:, inn] * q2[..., lo] + (1.0 - f[:, inn]) * q2[..., inn]
 
-    q2w = (qin[..., :, ew - 1] * dxa[..., :, ew]
-           + qin[..., :, ew] * dxa[..., :, ew - 1]) / (
-        dxa[..., :, ew - 1] + dxa[..., :, ew])
-    qout[..., inn, ew] = blend(grid["edge_w"], q2w)
-    q2e = (qin[..., :, ee - 1] * dxa[..., :, ee]
-           + qin[..., :, ee] * dxa[..., :, ee - 1]) / (
-        dxa[..., :, ee - 1] + dxa[..., :, ee])
-    qout[..., inn, ee] = blend(grid["edge_e"], q2e)
-    q1s = (qin[..., ew - 1, :] * dya[..., ew, :]
-           + qin[..., ew, :] * dya[..., ew - 1, :]) / (
-        dya[..., ew - 1, :] + dya[..., ew, :])
-    qout[..., ew, inn] = blend(grid["edge_s"], q1s)
-    q1n = (qin[..., ee - 1, :] * dya[..., ee, :]
-           + qin[..., ee, :] * dya[..., ee - 1, :]) / (
-        dya[..., ee - 1, :] + dya[..., ee, :])
-    qout[..., ee, inn] = blend(grid["edge_n"], q1n)
+    ry = _edge_span(T, T.south, T.north, icy, T.ny)
+    rx = _edge_span(T, T.west, T.east, icx, T.nx)
+    if T.west:
+        q2w = (qin[..., :, ew - 1] * dxa[..., :, ew]
+               + qin[..., :, ew] * dxa[..., :, ew - 1]) / (
+            dxa[..., :, ew - 1] + dxa[..., :, ew])
+        qout[..., ry, ew] = blend(grid["edge_w"], q2w, ry)
+    if T.east:
+        q2e = (qin[..., :, ee_x - 1] * dxa[..., :, ee_x]
+               + qin[..., :, ee_x] * dxa[..., :, ee_x - 1]) / (
+            dxa[..., :, ee_x - 1] + dxa[..., :, ee_x])
+        qout[..., ry, ee_x] = blend(grid["edge_e"], q2e, ry)
+    if T.south:
+        q1s = (qin[..., ew - 1, :] * dya[..., ew, :]
+               + qin[..., ew, :] * dya[..., ew - 1, :]) / (
+            dya[..., ew - 1, :] + dya[..., ew, :])
+        qout[..., ew, rx] = blend(grid["edge_s"], q1s, rx)
+    if T.north:
+        q1n = (qin[..., ee_y - 1, :] * dya[..., ee_y, :]
+               + qin[..., ee_y, :] * dya[..., ee_y - 1, :]) / (
+            dya[..., ee_y - 1, :] + dya[..., ee_y, :])
+        qout[..., ee_y, rx] = blend(grid["edge_n"], q1n, rx)
 
     # ---- qxx: interpolate qx rows to B rows ----
-    qxx = qin.new_zeros(qin.shape[:-2] + (jb, jb))
-    qxx[..., 2:ic - 1, :] = (A2 * (qx[..., 0:ic - 3, :] + qx[..., 3:ic, :])
-                             + A1 * (qx[..., 1:ic - 2, :]
-                                     + qx[..., 2:ic - 1, :]))
-    qxx[..., ew + 1, :] = (C1 * (qx[..., ew, :] + qx[..., ew + 1, :])
-                           + C2 * (qout[..., ew, :] + qxx[..., ew + 2, :]))
-    qxx[..., ee - 1, :] = (C1 * (qx[..., ee - 2, :] + qx[..., ee - 1, :])
-                           + C2 * (qout[..., ee, :] + qxx[..., ee - 2, :]))
+    qxx = qin.new_zeros(qin.shape[:-2] + (jby, jbx))
+    qxx[..., 2:icy - 1, :] = (A2 * (qx[..., 0:icy - 3, :] + qx[..., 3:icy, :])
+                              + A1 * (qx[..., 1:icy - 2, :]
+                                      + qx[..., 2:icy - 1, :]))
+    if T.south:
+        qxx[..., ew + 1, :] = (C1 * (qx[..., ew, :] + qx[..., ew + 1, :])
+                               + C2 * (qout[..., ew, :] + qxx[..., ew + 2, :]))
+    if T.north:
+        qxx[..., ee_y - 1, :] = (C1 * (qx[..., ee_y - 2, :]
+                                       + qx[..., ee_y - 1, :])
+                                 + C2 * (qout[..., ee_y, :]
+                                         + qxx[..., ee_y - 2, :]))
 
-    qyy = qin.new_zeros(qin.shape[:-2] + (jb, jb))
-    qyy[..., :, 2:ic - 1] = (A2 * (qy[..., :, 0:ic - 3] + qy[..., :, 3:ic])
-                             + A1 * (qy[..., :, 1:ic - 2]
-                                     + qy[..., :, 2:ic - 1]))
-    qyy[..., :, ew + 1] = (C1 * (qy[..., :, ew] + qy[..., :, ew + 1])
-                           + C2 * (qout[..., :, ew] + qyy[..., :, ew + 2]))
-    qyy[..., :, ee - 1] = (C1 * (qy[..., :, ee - 2] + qy[..., :, ee - 1])
-                           + C2 * (qout[..., :, ee] + qyy[..., :, ee - 2]))
+    qyy = qin.new_zeros(qin.shape[:-2] + (jby, jbx))
+    qyy[..., :, 2:icx - 1] = (A2 * (qy[..., :, 0:icx - 3] + qy[..., :, 3:icx])
+                              + A1 * (qy[..., :, 1:icx - 2]
+                                      + qy[..., :, 2:icx - 1]))
+    if T.west:
+        qyy[..., :, ew + 1] = (C1 * (qy[..., :, ew] + qy[..., :, ew + 1])
+                               + C2 * (qout[..., :, ew] + qyy[..., :, ew + 2]))
+    if T.east:
+        qyy[..., :, ee_x - 1] = (C1 * (qy[..., :, ee_x - 2]
+                                       + qy[..., :, ee_x - 1])
+                                 + C2 * (qout[..., :, ee_x]
+                                         + qyy[..., :, ee_x - 2]))
 
-    qout[..., inn, inn] = 0.5 * (qxx[..., inn, inn] + qyy[..., inn, inn])
+    rows, cols = _inner(T, icy, icx)
+    qout[..., rows, cols] = 0.5 * (qxx[..., rows, cols]
+                                   + qyy[..., rows, cols])
     return qout
 
 
 def a2b_ord2(qin, grid):
     """Second-order A-to-B interpolation (a2b_edge_nlm.F90 a2b_ord2)."""
-    ic = qin.shape[-1]
-    n = ic - 2 * NG
-    jb = ic + 1
+    T = grid["tile"]
+    icy, icx = qin.shape[-2:]
     ew = NG
-    ee = NG + n
-    npx = n + 1
+    ee_x = NG + T.nx
+    ee_y = NG + T.ny
+    X, Y = T.nx + 1, T.ny + 1
 
     def p(i):
         return i - 1 + NG
 
-    qout = qin.new_zeros(qin.shape[:-2] + (jb, jb))
+    qout = qin.new_zeros(qin.shape[:-2] + (icy + 1, icx + 1))
     # interior 4-cell average
-    qout[..., 1:ic, 1:ic] = 0.25 * (
-        qin[..., 0:ic - 1, 0:ic - 1] + qin[..., 0:ic - 1, 1:ic]
-        + qin[..., 1:ic, 0:ic - 1] + qin[..., 1:ic, 1:ic])
+    qout[..., 1:icy, 1:icx] = 0.25 * (
+        qin[..., 0:icy - 1, 0:icx - 1] + qin[..., 0:icy - 1, 1:icx]
+        + qin[..., 1:icy, 0:icx - 1] + qin[..., 1:icy, 1:icx])
     # corner 3-cell means
-    qout[..., ew, ew] = R3 * (qin[..., p(1), p(1)] + qin[..., p(0), p(1)]
-                              + qin[..., p(1), p(0)])
-    qout[..., ew, ee] = R3 * (qin[..., p(1), p(npx - 1)]
-                              + qin[..., p(0), p(npx - 1)]
-                              + qin[..., p(1), p(npx)])
-    qout[..., ee, ee] = R3 * (qin[..., p(npx - 1), p(npx - 1)]
-                              + qin[..., p(npx - 1), p(npx)]
-                              + qin[..., p(npx), p(npx - 1)])
-    qout[..., ee, ew] = R3 * (qin[..., p(npx - 1), p(1)]
-                              + qin[..., p(npx - 1), p(0)]
-                              + qin[..., p(npx), p(1)])
+    if T.south and T.west:
+        qout[..., ew, ew] = R3 * (qin[..., p(1), p(1)] + qin[..., p(0), p(1)]
+                                  + qin[..., p(1), p(0)])
+    if T.south and T.east:
+        qout[..., ew, ee_x] = R3 * (qin[..., p(1), p(X - 1)]
+                                    + qin[..., p(0), p(X - 1)]
+                                    + qin[..., p(1), p(X)])
+    if T.north and T.east:
+        qout[..., ee_y, ee_x] = R3 * (qin[..., p(Y - 1), p(X - 1)]
+                                      + qin[..., p(Y - 1), p(X)]
+                                      + qin[..., p(Y), p(X - 1)])
+    if T.north and T.west:
+        qout[..., ee_y, ew] = R3 * (qin[..., p(Y - 1), p(1)]
+                                    + qin[..., p(Y - 1), p(0)]
+                                    + qin[..., p(Y), p(1)])
     # edges with the edge factors
-    inn = slice(NG + 1, NG + n)
-    lo = slice(NG, NG + n - 1)
-
-    def blend(f, q2):
+    def blend(f, q2, inn):
+        lo = slice(inn.start - 1, inn.stop - 1)
         return f[:, inn] * q2[..., lo] + (1.0 - f[:, inn]) * q2[..., inn]
 
-    qout[..., inn, ew] = blend(grid["edge_w"],
-                               0.5 * (qin[..., :, ew - 1] + qin[..., :, ew]))
-    qout[..., inn, ee] = blend(grid["edge_e"],
-                               0.5 * (qin[..., :, ee - 1] + qin[..., :, ee]))
-    qout[..., ew, inn] = blend(grid["edge_s"],
-                               0.5 * (qin[..., ew - 1, :] + qin[..., ew, :]))
-    qout[..., ee, inn] = blend(grid["edge_n"],
-                               0.5 * (qin[..., ee - 1, :] + qin[..., ee, :]))
+    ry = _edge_span(T, T.south, T.north, icy, T.ny)
+    rx = _edge_span(T, T.west, T.east, icx, T.nx)
+    if T.west:
+        qout[..., ry, ew] = blend(
+            grid["edge_w"], 0.5 * (qin[..., :, ew - 1] + qin[..., :, ew]), ry)
+    if T.east:
+        qout[..., ry, ee_x] = blend(
+            grid["edge_e"], 0.5 * (qin[..., :, ee_x - 1] + qin[..., :, ee_x]),
+            ry)
+    if T.south:
+        qout[..., ew, rx] = blend(
+            grid["edge_s"], 0.5 * (qin[..., ew - 1, :] + qin[..., ew, :]), rx)
+    if T.north:
+        qout[..., ee_y, rx] = blend(
+            grid["edge_n"], 0.5 * (qin[..., ee_y - 1, :] + qin[..., ee_y, :]),
+            rx)
     return qout

@@ -10,60 +10,67 @@ components by the a11..a22 matrix.
 from __future__ import annotations
 
 from ..parallel import halo
-from .sw_core import F2P, SL
+from .sw_core import F2P, SL, tile_of
 
 C1 = 1.125
 C2 = -0.125
 
 
 def c2l_ord4(u, v, grid, topo, npx, do_halo=True):
-    """(ua, va) on the compute domain, zero in the halo."""
-    n = npx - 1
-    npy = npx
+    """(ua, va) on the compute domain, zero in the halo; the flux-weighted
+    edge rows and columns where the tile owns that face edge."""
+    T, X, Y = tile_of(grid, npx)
     p = F2P
     dx = grid["dx"]
     dy = grid["dy"]
     if do_halo:
         u, v = halo.fill_halo_dgrid(u, v, topo)
 
-    jc = u.shape[-1]
-    utmp = u.new_zeros(u.shape[:-2] + (jc, jc))
-    vtmp = u.new_zeros(u.shape[:-2] + (jc, jc))
-    # interior cells 2..n-1
-    ci = SL(2, npx - 2)
-    utmp[..., ci, ci] = (
-        C2 * (u[..., p(1):p(npy - 3) + 1, ci] + u[..., p(4):p(npy) + 1, ci])
-        + C1 * (u[..., p(2):p(npy - 2) + 1, ci]
-                + u[..., p(3):p(npy - 1) + 1, ci]))
-    vtmp[..., ci, ci] = (
-        C2 * (v[..., ci, p(1):p(npx - 3) + 1] + v[..., ci, p(4):p(npx) + 1])
-        + C1 * (v[..., ci, p(2):p(npx - 2) + 1]
-                + v[..., ci, p(3):p(npx - 1) + 1]))
+    jcy, jcx = u.shape[-2] - 1, u.shape[-1]
+    utmp = u.new_zeros(u.shape[:-2] + (jcy, jcx))
+    vtmp = u.new_zeros(u.shape[:-2] + (jcy, jcx))
+    # the cells between the face's edge rows and columns: 2..n-1
+    ciy = SL(2 if T.south else 1, Y - 2 if T.north else Y - 1)
+    cix = SL(2 if T.west else 1, X - 2 if T.east else X - 1)
 
-    cs = SL(1, n)
-    c0 = slice(p(1), p(n) + 1)
-    c1 = slice(p(2), p(npx) + 1)
-    for jr, ja, jb in ((p(1), p(1), p(2)), (p(npy - 1), p(npy - 1), p(npy))):
+    def sh(s, d):
+        return slice(s.start + d, s.stop + d)
+
+    utmp[..., ciy, cix] = (
+        C2 * (u[..., sh(ciy, -1), cix] + u[..., sh(ciy, 2), cix])
+        + C1 * (u[..., ciy, cix] + u[..., sh(ciy, 1), cix]))
+    vtmp[..., ciy, cix] = (
+        C2 * (v[..., ciy, sh(cix, -1)] + v[..., ciy, sh(cix, 2)])
+        + C1 * (v[..., ciy, cix] + v[..., ciy, sh(cix, 1)]))
+
+    csy, csx = SL(1, T.ny), SL(1, T.nx)
+    c0 = slice(p(1), p(T.nx) + 1)
+    c1 = slice(p(2), p(X) + 1)
+    rows = [(p(1), p(1), p(2))] * T.south + [(p(Y - 1), p(Y - 1), p(Y))] * T.north
+    for jr, ja, jb in rows:
         # south row j=1, north row j=npy-1
-        vtmp[..., jr, cs] = (2.0 * (v[..., jr, c0] * dy[..., jr, c0]
-                                    + v[..., jr, c1] * dy[..., jr, c1])
-                             / (dy[..., jr, c0] + dy[..., jr, c1]))
-        utmp[..., jr, cs] = (2.0 * (u[..., ja, cs] * dx[..., ja, cs]
-                                    + u[..., jb, cs] * dx[..., jb, cs])
-                             / (dx[..., ja, cs] + dx[..., jb, cs]))
-    for ic, ia, ib in ((p(1), p(1), p(2)), (p(npx - 1), p(npx - 1), p(npx))):
+        vtmp[..., jr, csx] = (2.0 * (v[..., jr, c0] * dy[..., jr, c0]
+                                     + v[..., jr, c1] * dy[..., jr, c1])
+                              / (dy[..., jr, c0] + dy[..., jr, c1]))
+        utmp[..., jr, csx] = (2.0 * (u[..., ja, csx] * dx[..., ja, csx]
+                                     + u[..., jb, csx] * dx[..., jb, csx])
+                              / (dx[..., ja, csx] + dx[..., jb, csx]))
+    r0 = slice(p(1), p(T.ny) + 1)
+    r1 = slice(p(2), p(Y) + 1)
+    cols = [(p(1), p(1), p(2))] * T.west + [(p(X - 1), p(X - 1), p(X))] * T.east
+    for ic, ia, ib in cols:
         # west col i=1, east col i=npx-1
-        utmp[..., cs, ic] = (2.0 * (u[..., c0, ic] * dx[..., c0, ic]
-                                    + u[..., c1, ic] * dx[..., c1, ic])
-                             / (dx[..., c0, ic] + dx[..., c1, ic]))
-        vtmp[..., cs, ic] = (2.0 * (v[..., cs, ia] * dy[..., cs, ia]
-                                    + v[..., cs, ib] * dy[..., cs, ib])
-                             / (dy[..., cs, ia] + dy[..., cs, ib]))
+        utmp[..., csy, ic] = (2.0 * (u[..., r0, ic] * dx[..., r0, ic]
+                                     + u[..., r1, ic] * dx[..., r1, ic])
+                              / (dx[..., r0, ic] + dx[..., r1, ic]))
+        vtmp[..., csy, ic] = (2.0 * (v[..., csy, ia] * dy[..., csy, ia]
+                                     + v[..., csy, ib] * dy[..., csy, ib])
+                              / (dy[..., csy, ia] + dy[..., csy, ib]))
 
     ua = grid["a11"] * utmp + grid["a12"] * vtmp
     va = grid["a21"] * utmp + grid["a22"] * vtmp
     ua_c = ua.new_zeros(ua.shape)
     va_c = va.new_zeros(va.shape)
-    ua_c[..., cs, cs] = ua[..., cs, cs]
-    va_c[..., cs, cs] = va[..., cs, cs]
+    ua_c[..., csy, csx] = ua[..., csy, csx]
+    va_c[..., csy, csx] = va[..., csy, csx]
     return ua_c, va_c

@@ -6,13 +6,16 @@ nonhydrostatic, the trajectory schemes hord 8/9 and the perturbation
 schemes (also as a per-level band, see ppm.xppm), with vorticity
 damping and the d_con damping heat.
 
-Shapes (n cells/side, jc = n+2ng, jb = jc+1; leading dims broadcast):
-  u, vt, divg_u : (..., 6, jb, jc)   rows = B lines, cols = cells
-  v, ut, divg_v : (..., 6, jc, jb)
-  uc            : (..., 6, jc, jb)   C-grid u (cols = B)
-  vc            : (..., 6, jb, jc)
-  delp/pt/w/wk  : (..., 6, jc, jc)
-  B-point arrays: (..., 6, jb, jb)
+Shapes (ny x nx cells of the model's tile, the whole face on one
+process; jc = n+2ng, jb = jc+1 along each axis; leading dims broadcast):
+  u, vt, divg_u : (..., nf, jby, jcx)   rows = B lines, cols = cells
+  v, ut, divg_v : (..., nf, jcy, jbx)
+  uc            : (..., nf, jcy, jbx)   C-grid u (cols = B)
+  vc            : (..., nf, jby, jcx)
+  delp/pt/w/wk  : (..., nf, jcy, jcx)
+  B-point arrays: (..., nf, jby, jbx)
+The edge and corner fixes act where the tile owns that face edge or
+cube corner.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ from ..parallel import halo
 from . import ppm
 from .a2b_edge import a2b_ord4
 from .ppm import C1, C2, C3, P1, P2
-from .sw_core import F2P, SL, del6_vt_flux
+from .sw_core import F2P, SL, del6_vt_flux, face_span, tile_of
 from .transport import fv_tp_2d, mask_band
 
 R3 = 1.0 / 3.0
@@ -73,20 +76,28 @@ def _edge_2sided(q, dxm, e, A):
     )
 
 
-def _zero_ends(x):
+def _zero_ends(x, lo, hi):
     """x with the first and last line of the other axis set to zero (the
-    perpendicular-edge zeroing at j==1 / j==npy)."""
+    perpendicular-edge zeroing at j==1 / j==npy), each where the tile owns
+    that face edge (`lo`, `hi`)."""
+    if not (lo or hi):
+        return x
     out = x.clone()
-    out[..., 0] = 0.0
-    out[..., -1] = 0.0
+    if lo:
+        out[..., 0] = 0.0
+    if hi:
+        out[..., -1] = 0.0
     return out
 
 
-def _flux_low(q, cb, iord, dxm, npx, A, qL, qR, rdxL, rdxR):
+def _flux_low(q, cb, iord, dxm, A, qL, qR, rdxL, rdxR, edges):
     """The schemes iord 2-7 with their face-edge fixes (sw_core_nlm.F90
-    xtp_u iord < 8)."""
+    xtp_u iord < 8); `edges` = (lo, hi, perpendicular lo, perpendicular
+    hi), the face edges the tile owns."""
+    lo, hi, plo, phi = edges
     ic = A.size(q)
     n = ic - 2 * NG
+    npx = n + 1
     p = F2P
     b0s = p(1)
     z2 = A.zeros_like_w(q, 2)
@@ -94,36 +105,43 @@ def _flux_low(q, cb, iord, dxm, npx, A, qL, qR, rdxL, rdxR):
                 + P2 * (A.rng(q, 0, ic - 3) + A.rng(q, 3, ic)), z2])
     bl = A.rng(al, 0, ic) - q
     br = A.rng(al, 1, ic + 1) - q
-    # west edge fixes (cells 0, 1, 2 -> padded p(0)..p(2))
-    i1 = p(1)
-    xt = C3 * A.get(q, i1) + C2 * A.get(q, i1 + 1) + C1 * A.get(q, i1 + 2)
-    br_i1_a = xt - A.get(q, i1)
-    bl_i1p1 = xt - A.get(q, i1 + 1)
-    br_i1p1 = A.get(al, i1 + 3) - A.get(q, i1 + 1)
-    bl0 = (C1 * A.get(q, i1 - 3) + C2 * A.get(q, i1 - 2)
-           + C3 * A.get(q, i1 - 1) - A.get(q, i1 - 1))
-    xte = _edge_2sided(q, dxm, i1, A)
-    br0 = xte - A.get(q, i1 - 1)
-    bl1 = xte - A.get(q, i1)
-    # east edge (cells npx-2, npx-1, npx)
-    iN = p(npx - 2)
-    bl_iN = A.get(al, iN) - A.get(q, iN)
-    xt = C1 * A.get(q, iN - 1) + C2 * A.get(q, iN) + C3 * A.get(q, iN + 1)
-    br_iN = xt - A.get(q, iN)
-    bl_iNp1_a = xt - A.get(q, iN + 1)
-    xte = _edge_2sided(q, dxm, p(npx), A)
-    brN1 = xte - A.get(q, iN + 1)
-    blN2 = xte - A.get(q, iN + 2)
-    brN2 = (C3 * A.get(q, iN + 2) + C2 * A.get(q, iN + 3)
-            + C1 * A.get(q, iN + 4) - A.get(q, iN + 2))
-    bl = ppm.set_cols(bl, [(i1 - 1, _zero_ends(bl0)), (i1, _zero_ends(bl1)),
-                           (i1 + 1, bl_i1p1), (iN, bl_iN),
-                           (iN + 1, _zero_ends(bl_iNp1_a)),
-                           (iN + 2, _zero_ends(blN2))], A)
-    br = ppm.set_cols(br, [(i1 - 1, _zero_ends(br0)),
-                           (i1, _zero_ends(br_i1_a)), (i1 + 1, br_i1p1),
-                           (iN, br_iN), (iN + 1, _zero_ends(brN1)),
-                           (iN + 2, _zero_ends(brN2))], A)
+    set_l, set_r = [], []
+    if lo:
+        # west edge fixes (cells 0, 1, 2 -> padded p(0)..p(2))
+        i1 = p(1)
+        xt = (C3 * A.get(q, i1) + C2 * A.get(q, i1 + 1)
+              + C1 * A.get(q, i1 + 2))
+        br_i1_a = xt - A.get(q, i1)
+        bl_i1p1 = xt - A.get(q, i1 + 1)
+        br_i1p1 = A.get(al, i1 + 3) - A.get(q, i1 + 1)
+        bl0 = (C1 * A.get(q, i1 - 3) + C2 * A.get(q, i1 - 2)
+               + C3 * A.get(q, i1 - 1) - A.get(q, i1 - 1))
+        xte = _edge_2sided(q, dxm, i1, A)
+        br0 = xte - A.get(q, i1 - 1)
+        bl1 = xte - A.get(q, i1)
+        set_l += [(i1 - 1, _zero_ends(bl0, plo, phi)),
+                  (i1, _zero_ends(bl1, plo, phi)), (i1 + 1, bl_i1p1)]
+        set_r += [(i1 - 1, _zero_ends(br0, plo, phi)),
+                  (i1, _zero_ends(br_i1_a, plo, phi)), (i1 + 1, br_i1p1)]
+    if hi:
+        # east edge (cells npx-2, npx-1, npx)
+        iN = p(npx - 2)
+        bl_iN = A.get(al, iN) - A.get(q, iN)
+        xt = (C1 * A.get(q, iN - 1) + C2 * A.get(q, iN)
+              + C3 * A.get(q, iN + 1))
+        br_iN = xt - A.get(q, iN)
+        bl_iNp1_a = xt - A.get(q, iN + 1)
+        xte = _edge_2sided(q, dxm, p(npx), A)
+        brN1 = xte - A.get(q, iN + 1)
+        blN2 = xte - A.get(q, iN + 2)
+        brN2 = (C3 * A.get(q, iN + 2) + C2 * A.get(q, iN + 3)
+                + C1 * A.get(q, iN + 4) - A.get(q, iN + 2))
+        set_l += [(iN, bl_iN), (iN + 1, _zero_ends(bl_iNp1_a, plo, phi)),
+                  (iN + 2, _zero_ends(blN2, plo, phi))]
+        set_r += [(iN, br_iN), (iN + 1, _zero_ends(brN1, plo, phi)),
+                  (iN + 2, _zero_ends(brN2, plo, phi))]
+    bl = ppm.set_cols(bl, set_l, A)
+    br = ppm.set_cols(br, set_r, A)
     b0 = bl + br
     blL = A.rng(bl, b0s - 1, b0s + n)
     brL = A.rng(br, b0s - 1, b0s + n)
@@ -174,17 +192,20 @@ def _flux_low(q, cb, iord, dxm, npx, A, qL, qR, rdxL, rdxR):
     return base + torch.where(s5L | s5R, fx0, 0.0)
 
 
-def _xtp_flux(q, cb, iord, dxm, rdxm, npx, A):
+def _xtp_flux(q, cb, iord, dxm, rdxm, A, edges):
     """Advective flux of a D-grid wind component along its own line, iord
     1-13 (sw_core_nlm.F90:1970-2306).
 
     Works along axis `A.ax` (-1 for xtp_u rows, -2 for ytp_v columns).
-    q: cells, width jc along A.ax; cb: courant at B indices 1..npx;
-    dxm/rdxm metric aligned with q.  Returns the flux, width n+1."""
+    q: cells, width jc along A.ax; cb: courant at B indices 1..n+1;
+    dxm/rdxm metric aligned with q; `edges` as in _flux_low.  Returns the
+    flux, width n+1."""
     if not 1 <= iord <= 13:
         raise ValueError(f"xtp_u/ytp_v iord={iord!r}: the schemes are 1-13")
+    lo, hi, plo, phi = edges
     ic = A.size(q)
     n = ic - 2 * NG
+    npx = n + 1
     p = F2P
     b0s = p(1)  # python index of B point 1
     qL = A.rng(q, b0s - 1, b0s + n)
@@ -194,7 +215,7 @@ def _xtp_flux(q, cb, iord, dxm, rdxm, npx, A):
     if iord == 1:
         return fwhere(cb > 0.0, qL, qR)
     if iord < 8:
-        return _flux_low(q, cb, iord, dxm, npx, A, qL, qR, rdxL, rdxR)
+        return _flux_low(q, cb, iord, dxm, A, qL, qR, rdxL, rdxR, edges)
 
     qm1 = A.rng(q, 0, ic - 2)
     qp1 = A.rng(q, 2, ic)
@@ -245,48 +266,47 @@ def _xtp_flux(q, cb, iord, dxm, rdxm, npx, A):
             br = fwhere(flat, 0.0, fwhere(noisy, br_l, br))
     # iord 11-13: the unlimited bl/br as computed
 
-    # west edge (sw_core_nlm.F90:2237-2261)
-    i1 = p(1)
-    br_i1p1_a = A.get(al, i1 + 3) - A.get(q, i1 + 1)
-    xt = (S15 * A.get(q, i1) + S11 * A.get(q, i1 + 1)
-          - S14 * A.get(dm, i1 + 1))
-    bl_i1p1_a = xt - A.get(q, i1 + 1)
-    br_i1_a = xt - A.get(q, i1)
-    bl0 = S14 * A.get(dm, i1 - 2) - S11 * A.get(dq, i1 - 2)
-    xte = _edge_2sided(q, dxm, i1, A)
-    bl_i1m1 = _zero_ends(bl0)
-    br_i1m1 = _zero_ends(xte - A.get(q, i1 - 1))
-    bl_i1 = _zero_ends(xte - A.get(q, i1))
-    br_i1 = _zero_ends(br_i1_a)
-    b2l, b2r = ppm.pert_ppm(A.rng(q, i1 + 1, i1 + 2), A.exp(bl_i1p1_a),
-                            A.exp(br_i1p1_a), 1)
-    bl_i1p1 = A.get(b2l, 0)
-    br_i1p1 = A.get(b2r, 0)
+    set_l, set_r = [], []
+    if lo:
+        # west edge (sw_core_nlm.F90:2237-2261)
+        i1 = p(1)
+        br_i1p1_a = A.get(al, i1 + 3) - A.get(q, i1 + 1)
+        xt = (S15 * A.get(q, i1) + S11 * A.get(q, i1 + 1)
+              - S14 * A.get(dm, i1 + 1))
+        bl_i1p1_a = xt - A.get(q, i1 + 1)
+        br_i1_a = xt - A.get(q, i1)
+        bl0 = S14 * A.get(dm, i1 - 2) - S11 * A.get(dq, i1 - 2)
+        xte = _edge_2sided(q, dxm, i1, A)
+        bl_i1m1 = _zero_ends(bl0, plo, phi)
+        br_i1m1 = _zero_ends(xte - A.get(q, i1 - 1), plo, phi)
+        bl_i1 = _zero_ends(xte - A.get(q, i1), plo, phi)
+        br_i1 = _zero_ends(br_i1_a, plo, phi)
+        b2l, b2r = ppm.pert_ppm(A.rng(q, i1 + 1, i1 + 2), A.exp(bl_i1p1_a),
+                                A.exp(br_i1p1_a), 1)
+        set_l += [(i1 - 1, bl_i1m1), (i1, bl_i1), (i1 + 1, A.get(b2l, 0))]
+        set_r += [(i1 - 1, br_i1m1), (i1, br_i1), (i1 + 1, A.get(b2r, 0))]
 
-    # east edge (:2264-2290)
-    iN = p(npx - 2)
-    bl_iN_a = A.get(al, iN) - A.get(q, iN)
-    xt = (S15 * A.get(q, iN + 1) + S11 * A.get(q, iN)
-          + S14 * A.get(dm, iN))
-    br_iN_a = xt - A.get(q, iN)
-    bl_iNp1_a = xt - A.get(q, iN + 1)
-    brN2 = S11 * A.get(dq, iN + 2) - S14 * A.get(dm, iN + 3)
-    xte = _edge_2sided(q, dxm, p(npx), A)
-    bl_iNp1 = _zero_ends(bl_iNp1_a)
-    br_iNp1 = _zero_ends(xte - A.get(q, iN + 1))
-    bl_iNp2 = _zero_ends(xte - A.get(q, iN + 2))
-    br_iNp2 = _zero_ends(brN2)
-    b2l, b2r = ppm.pert_ppm(A.rng(q, iN, iN + 1), A.exp(bl_iN_a),
-                            A.exp(br_iN_a), 1)
-    bl_iN = A.get(b2l, 0)
-    br_iN = A.get(b2r, 0)
+    if hi:
+        # east edge (:2264-2290)
+        iN = p(npx - 2)
+        bl_iN_a = A.get(al, iN) - A.get(q, iN)
+        xt = (S15 * A.get(q, iN + 1) + S11 * A.get(q, iN)
+              + S14 * A.get(dm, iN))
+        br_iN_a = xt - A.get(q, iN)
+        bl_iNp1_a = xt - A.get(q, iN + 1)
+        brN2 = S11 * A.get(dq, iN + 2) - S14 * A.get(dm, iN + 3)
+        xte = _edge_2sided(q, dxm, p(npx), A)
+        bl_iNp1 = _zero_ends(bl_iNp1_a, plo, phi)
+        br_iNp1 = _zero_ends(xte - A.get(q, iN + 1), plo, phi)
+        bl_iNp2 = _zero_ends(xte - A.get(q, iN + 2), plo, phi)
+        br_iNp2 = _zero_ends(brN2, plo, phi)
+        b2l, b2r = ppm.pert_ppm(A.rng(q, iN, iN + 1), A.exp(bl_iN_a),
+                                A.exp(br_iN_a), 1)
+        set_l += [(iN, A.get(b2l, 0)), (iN + 1, bl_iNp1), (iN + 2, bl_iNp2)]
+        set_r += [(iN, A.get(b2r, 0)), (iN + 1, br_iNp1), (iN + 2, br_iNp2)]
 
-    bl = ppm.set_cols(bl, [(i1 - 1, bl_i1m1), (i1, bl_i1), (i1 + 1, bl_i1p1),
-                           (iN, bl_iN), (iN + 1, bl_iNp1), (iN + 2, bl_iNp2)],
-                      A)
-    br = ppm.set_cols(br, [(i1 - 1, br_i1m1), (i1, br_i1), (i1 + 1, br_i1p1),
-                           (iN, br_iN), (iN + 1, br_iNp1), (iN + 2, br_iNp2)],
-                      A)
+    bl = ppm.set_cols(bl, set_l, A)
+    br = ppm.set_cols(br, set_r, A)
 
     b0 = bl + br
     brL = A.rng(br, b0s - 1, b0s + n)
@@ -302,39 +322,48 @@ def _xtp_flux(q, cb, iord, dxm, rdxm, npx, A):
     )
 
 
-def xtp_u(cb, u, dx, rdx, iord, npx):
+def xtp_u(cb, u, dx, rdx, iord, npx, tile=None):
     """Flux of u along x at B points (sw_core_nlm.F90:1970).
 
-    cb: (..., jb, jb) courant (only B 1..npx read); u: (..., jb, jc).
-    Returns (..., npx, npx) flux at B points (j, i) in [1, npx]^2.
-    `iord` may be a per-level band (main, sponge, ksp), see ppm.xppm."""
+    cb: (..., jby, jbx) courant (only B 1..X/Y read); u: (..., jby, jcx).
+    Returns (..., Y, X) flux at B points (j, i) of the tile, [1, npx]^2 on
+    a whole face (`tile` None).  `iord` may be a per-level band (main,
+    sponge, ksp), see ppm.xppm."""
     if isinstance(iord, tuple):
         main, sponge, ksp = iord
-        return torch.cat([xtp_u(cb[:ksp], u[:ksp], dx, rdx, sponge, npx),
-                          xtp_u(cb[ksp:], u[ksp:], dx, rdx, main, npx)])
-    bs = SL(1, npx)
-    return _xtp_flux(u[..., bs, :], cb[..., bs, bs], iord,
-                     dx[..., bs, :], rdx[..., bs, :], npx, ppm._AXX)
+        return torch.cat([xtp_u(cb[:ksp], u[:ksp], dx, rdx, sponge, npx,
+                                tile),
+                          xtp_u(cb[ksp:], u[ksp:], dx, rdx, main, npx,
+                                tile)])
+    bsy = SL(1, u.shape[-2] - 2 * NG)
+    bsx = SL(1, u.shape[-1] - 2 * NG + 1)
+    return _xtp_flux(u[..., bsy, :], cb[..., bsy, bsx], iord,
+                     dx[..., bsy, :], rdx[..., bsy, :], ppm._AXX,
+                     ppm.edges(tile, -1))
 
 
-def ytp_v(cb, v, dy, rdy, jord, npx):
+def ytp_v(cb, v, dy, rdy, jord, npx, tile=None):
     """Flux of v along y at B points (sw_core_nlm.F90:2312): the same
     operator along axis -2."""
     if isinstance(jord, tuple):
         main, sponge, ksp = jord
-        return torch.cat([ytp_v(cb[:ksp], v[:ksp], dy, rdy, sponge, npx),
-                          ytp_v(cb[ksp:], v[ksp:], dy, rdy, main, npx)])
-    bs = SL(1, npx)
-    return _xtp_flux(v[..., :, bs], cb[..., bs, bs], jord,
-                     dy[..., :, bs], rdy[..., :, bs], npx, ppm._AXY)
+        return torch.cat([ytp_v(cb[:ksp], v[:ksp], dy, rdy, sponge, npx,
+                                tile),
+                          ytp_v(cb[ksp:], v[ksp:], dy, rdy, main, npx,
+                                tile)])
+    bsy = SL(1, v.shape[-2] - 2 * NG + 1)
+    bsx = SL(1, v.shape[-1] - 2 * NG)
+    return _xtp_flux(v[..., :, bsx], cb[..., bsy, bsx], jord,
+                     dy[..., :, bsx], rdy[..., :, bsx], ppm._AXY,
+                     ppm.edges(tile, -2))
 
 
 def _contravariant_winds(uc, vc, grid, dt, npx):
     """Contravariant C-grid winds ut/vt with the cube-edge and corner
-    fixes (sw_core_nlm.F90:650-840)."""
-    n = npx - 1
-    npy = npx
-    jc = n + 2 * NG
+    fixes (sw_core_nlm.F90:650-840), each where the tile owns that face
+    edge or cube corner."""
+    T, X, Y = tile_of(grid, npx)
+    jcy, jcx = uc.shape[-2], vc.shape[-1]
     p = F2P
     sin_sg = grid["sin_sg"]
     cosa_u = grid["cosa_u"]
@@ -342,53 +371,56 @@ def _contravariant_winds(uc, vc, grid, dt, npx):
     rsin_u = grid["rsin_u"]
     rsin_v = grid["rsin_v"]
 
-    # interior formula; rows j in {0, 1, npy-1, npy} stay zero
+    # interior formula; rows j in {0, 1} (south) and {npy-1, npy} (north)
+    # stay zero
     ut = torch.zeros_like(uc)
-    ut[..., 0:jc, 1:jc] = (
-        uc[..., 0:jc, 1:jc]
-        - 0.25 * cosa_u[..., 0:jc, 1:jc]
-        * (vc[..., 0:jc, 0:jc - 1] + vc[..., 0:jc, 1:jc]
-           + vc[..., 1:jc + 1, 0:jc - 1] + vc[..., 1:jc + 1, 1:jc])
-    ) * rsin_u[..., 0:jc, 1:jc]
-    for j in (0, 1, npy - 1, npy):
+    ut[..., 0:jcy, 1:jcx] = (
+        uc[..., 0:jcy, 1:jcx]
+        - 0.25 * cosa_u[..., 0:jcy, 1:jcx]
+        * (vc[..., 0:jcy, 0:jcx - 1] + vc[..., 0:jcy, 1:jcx]
+           + vc[..., 1:jcy + 1, 0:jcx - 1] + vc[..., 1:jcy + 1, 1:jcx])
+    ) * rsin_u[..., 0:jcy, 1:jcx]
+    for j in [0, 1] * T.south + [Y - 1, Y] * T.north:
         ut[..., p(j), :] = 0.0
 
     vt = torch.zeros_like(vc)
-    vt[..., 1:jc, 0:jc] = (
-        vc[..., 1:jc, 0:jc]
-        - 0.25 * cosa_v[..., 1:jc, 0:jc]
-        * (uc[..., 0:jc - 1, 0:jc] + uc[..., 0:jc - 1, 1:jc + 1]
-           + uc[..., 1:jc, 0:jc] + uc[..., 1:jc, 1:jc + 1])
-    ) * rsin_v[..., 1:jc, 0:jc]
-    for j in (1, npy):
+    vt[..., 1:jcy, 0:jcx] = (
+        vc[..., 1:jcy, 0:jcx]
+        - 0.25 * cosa_v[..., 1:jcy, 0:jcx]
+        * (uc[..., 0:jcy - 1, 0:jcx] + uc[..., 0:jcy - 1, 1:jcx + 1]
+           + uc[..., 1:jcy, 0:jcx] + uc[..., 1:jcy, 1:jcx + 1])
+    ) * rsin_v[..., 1:jcy, 0:jcx]
+    for j in [1] * T.south + [Y] * T.north:
         vt[..., p(j), :] = 0.0
 
     # west/east edge cols: ut = uc / sin_sg (:687-694)
-    for e in (p(1), p(npx)):
+    for e in [p(1)] * T.west + [p(X)] * T.east:
         sel = fbool(uc[..., :, e] * dt > 0.0)
         ut[..., :, e] = uc[..., :, e] / torch.where(
             sel, sin_sg[2][..., :, e - 1], sin_sg[0][..., :, e])
     # south/north edge rows for vt (:718-743)
-    for e in (p(1), p(npy)):
+    for e in [p(1)] * T.south + [p(Y)] * T.north:
         sel = fbool(vc[..., e, :] * dt > 0.0)
         vt[..., e, :] = vc[..., e, :] / torch.where(
             sel, sin_sg[3][..., e - 1, :], sin_sg[1][..., e, :])
 
-    # secondary edge fixes (no rsin factor), sw_core_nlm.F90:696-749
-    rs2 = SL(3, npy - 2)
-    utm = SL(2, npy - 3)
-    ut0 = SL(3, npy - 2)
-    for i0 in (0, 1, npx - 1, npx):
+    # secondary edge fixes (no rsin factor), sw_core_nlm.F90:696-749:
+    # along the face edge between its corner regions
+    npy_f = T.n + 1
+    rs2 = face_span(T, "y", 3, npy_f - 2, 1, jcy - 1)
+    utm = slice(rs2.start - 1, rs2.stop - 1)
+    ut0 = rs2
+    for i0 in [0, 1] * T.west + [X - 1, X] * T.east:
         c0 = p(i0)
         vt[..., rs2, c0] = (
             vc[..., rs2, c0]
             - 0.25 * cosa_v[..., rs2, c0]
             * (ut[..., utm, c0] + ut[..., utm, c0 + 1]
                + ut[..., ut0, c0] + ut[..., ut0, c0 + 1]))
-    cs2 = SL(3, npx - 2)
-    vtm = SL(2, npx - 3)
-    vt0 = SL(3, npx - 2)
-    for j0 in (0, 1, npy - 1, npy):
+    cs2 = face_span(T, "x", 3, npy_f - 2, 1, jcx - 1)
+    vtm = slice(cs2.start - 1, cs2.stop - 1)
+    vt0 = cs2
+    for j0 in [0, 1] * T.south + [Y - 1, Y] * T.north:
         r0 = p(j0)
         ut[..., r0, cs2] = (
             uc[..., r0, cs2]
@@ -425,44 +457,42 @@ def _contravariant_winds(uc, vc, grid, dt, npx):
                * (vt[at(*vts[0])] + vt[at(*vts[1])] + vt[at(*vts[2])]))
         ) * damp
 
-    X = npx
-    Y = npy
-    # sw corner
-    solve_u((2, 0), ((1, 1), (2, 1), (2, 0)), (1, 0),
-            ((1, 0), (1, -1), (2, -1)))
-    solve_v((0, 2), ((1, 1), (1, 2), (0, 2)), (0, 1),
-            ((0, 1), (-1, 1), (-1, 2)))
-    solve_u((2, 1), ((1, 1), (2, 1), (2, 2)), (1, 2),
-            ((1, 1), (1, 2), (2, 2)))
-    solve_v((1, 2), ((1, 1), (1, 2), (2, 2)), (2, 1),
-            ((1, 1), (2, 1), (2, 2)))
-    # se corner
-    solve_u((X - 1, 0), ((X - 1, 1), (X - 2, 1), (X - 2, 0)), (X - 1, 0),
-            ((X, 0), (X, -1), (X - 1, -1)))
-    solve_v((X, 2), ((X, 1), (X, 2), (X + 1, 2)), (X + 1, 1),
-            ((X, 1), (X + 1, 1), (X + 1, 2)))
-    solve_u((X - 1, 1), ((X - 1, 1), (X - 2, 1), (X - 2, 2)), (X - 1, 2),
-            ((X, 1), (X, 2), (X - 1, 2)))
-    solve_v((X - 1, 2), ((X, 1), (X, 2), (X - 1, 2)), (X - 1, 1),
-            ((X - 1, 1), (X - 2, 1), (X - 2, 2)))
-    # ne corner
-    solve_u((X - 1, Y), ((X - 1, Y), (X - 2, Y), (X - 2, Y + 1)),
-            (X - 1, Y + 1), ((X, Y), (X, Y + 1), (X - 1, Y + 1)))
-    solve_v((X, Y - 1), ((X, Y - 1), (X, Y - 2), (X + 1, Y - 2)),
-            (X + 1, Y - 1), ((X, Y), (X + 1, Y), (X + 1, Y - 1)))
-    solve_u((X - 1, Y - 1), ((X - 1, Y), (X - 2, Y), (X - 2, Y - 1)),
-            (X - 1, Y - 1), ((X, Y - 1), (X, Y - 2), (X - 1, Y - 2)))
-    solve_v((X - 1, Y - 1), ((X, Y - 1), (X, Y - 2), (X - 1, Y - 2)),
-            (X - 1, Y - 1), ((X - 1, Y), (X - 2, Y), (X - 2, Y - 1)))
-    # nw corner
-    solve_u((2, Y), ((1, Y), (2, Y), (2, Y + 1)), (1, Y + 1),
-            ((1, Y), (1, Y + 1), (2, Y + 1)))
-    solve_v((0, Y - 1), ((1, Y - 1), (1, Y - 2), (0, Y - 2)), (0, Y - 1),
-            ((0, Y), (-1, Y), (-1, Y - 1)))
-    solve_u((2, Y - 1), ((1, Y), (2, Y), (2, Y - 1)), (1, Y - 1),
-            ((1, Y - 1), (1, Y - 2), (2, Y - 2)))
-    solve_v((1, Y - 1), ((1, Y - 1), (1, Y - 2), (2, Y - 2)), (2, Y - 1),
-            ((1, Y), (2, Y), (2, Y - 1)))
+    if T.south and T.west:
+        solve_u((2, 0), ((1, 1), (2, 1), (2, 0)), (1, 0),
+                ((1, 0), (1, -1), (2, -1)))
+        solve_v((0, 2), ((1, 1), (1, 2), (0, 2)), (0, 1),
+                ((0, 1), (-1, 1), (-1, 2)))
+        solve_u((2, 1), ((1, 1), (2, 1), (2, 2)), (1, 2),
+                ((1, 1), (1, 2), (2, 2)))
+        solve_v((1, 2), ((1, 1), (1, 2), (2, 2)), (2, 1),
+                ((1, 1), (2, 1), (2, 2)))
+    if T.south and T.east:
+        solve_u((X - 1, 0), ((X - 1, 1), (X - 2, 1), (X - 2, 0)), (X - 1, 0),
+                ((X, 0), (X, -1), (X - 1, -1)))
+        solve_v((X, 2), ((X, 1), (X, 2), (X + 1, 2)), (X + 1, 1),
+                ((X, 1), (X + 1, 1), (X + 1, 2)))
+        solve_u((X - 1, 1), ((X - 1, 1), (X - 2, 1), (X - 2, 2)), (X - 1, 2),
+                ((X, 1), (X, 2), (X - 1, 2)))
+        solve_v((X - 1, 2), ((X, 1), (X, 2), (X - 1, 2)), (X - 1, 1),
+                ((X - 1, 1), (X - 2, 1), (X - 2, 2)))
+    if T.north and T.east:
+        solve_u((X - 1, Y), ((X - 1, Y), (X - 2, Y), (X - 2, Y + 1)),
+                (X - 1, Y + 1), ((X, Y), (X, Y + 1), (X - 1, Y + 1)))
+        solve_v((X, Y - 1), ((X, Y - 1), (X, Y - 2), (X + 1, Y - 2)),
+                (X + 1, Y - 1), ((X, Y), (X + 1, Y), (X + 1, Y - 1)))
+        solve_u((X - 1, Y - 1), ((X - 1, Y), (X - 2, Y), (X - 2, Y - 1)),
+                (X - 1, Y - 1), ((X, Y - 1), (X, Y - 2), (X - 1, Y - 2)))
+        solve_v((X - 1, Y - 1), ((X, Y - 1), (X, Y - 2), (X - 1, Y - 2)),
+                (X - 1, Y - 1), ((X - 1, Y), (X - 2, Y), (X - 2, Y - 1)))
+    if T.north and T.west:
+        solve_u((2, Y), ((1, Y), (2, Y), (2, Y + 1)), (1, Y + 1),
+                ((1, Y), (1, Y + 1), (2, Y + 1)))
+        solve_v((0, Y - 1), ((1, Y - 1), (1, Y - 2), (0, Y - 2)), (0, Y - 1),
+                ((0, Y), (-1, Y), (-1, Y - 1)))
+        solve_u((2, Y - 1), ((1, Y), (2, Y), (2, Y - 1)), (1, Y - 1),
+                ((1, Y - 1), (1, Y - 2), (2, Y - 2)))
+        solve_v((1, Y - 1), ((1, Y - 1), (1, Y - 2), (2, Y - 2)), (2, Y - 1),
+                ((1, Y), (2, Y), (2, Y - 1)))
     return ut, vt
 
 
@@ -498,10 +528,10 @@ def d_sw(
     nordv0_k = kcoef["nordv0"]
     nordt0_k = kcoef["nordt0"]
     nordw0_k = kcoef["nordw0"]
-    n = npx - 1
-    npy = npx
-    jc = n + 2 * NG
-    jb = jc + 1
+    T, X, Y = tile_of(grid, npx)
+    ny, nx = T.ny, T.nx
+    jcy, jcx = delp.shape[-2:]
+    jby, jbx = jcy + 1, jcx + 1
     p = F2P
 
     sin_sg = grid["sin_sg"]
@@ -535,25 +565,27 @@ def d_sw(
     # ---------------------------------------------------------------
     # advective courant numbers and area fluxes (:851-900)
     # ---------------------------------------------------------------
-    es = SL(1, npx)  # B cols 1..npx
-    xfx0 = dt * ut[..., :, es]                       # (..., jc, n+1)
+    esx = SL(1, X)  # B cols 1..X
+    esy = SL(1, Y)
+    xfx0 = dt * ut[..., :, esx]                      # (..., jcy, nx+1)
     selx = fbool(xfx0 > 0.0)
-    crx = torch.where(selx, xfx0 * rdxa[..., :, p(0):p(n) + 1],
-                      xfx0 * rdxa[..., :, p(1):p(npx) + 1])
-    xfx = dy[..., :, es] * xfx0 * torch.where(
-        selx, sin_sg[2][..., :, p(0):p(n) + 1],
-        sin_sg[0][..., :, p(1):p(npx) + 1])
-    yfx0 = dt * vt[..., es, :]                       # (..., n+1, jc)
+    crx = torch.where(selx, xfx0 * rdxa[..., :, p(0):p(nx) + 1],
+                      xfx0 * rdxa[..., :, p(1):p(X) + 1])
+    xfx = dy[..., :, esx] * xfx0 * torch.where(
+        selx, sin_sg[2][..., :, p(0):p(nx) + 1],
+        sin_sg[0][..., :, p(1):p(X) + 1])
+    yfx0 = dt * vt[..., esy, :]                      # (..., ny+1, jcx)
     sely = fbool(yfx0 > 0.0)
-    cry = torch.where(sely, yfx0 * rdya[..., p(0):p(n) + 1, :],
-                      yfx0 * rdya[..., p(1):p(npy) + 1, :])
-    yfx = dx[..., es, :] * yfx0 * torch.where(
-        sely, sin_sg[3][..., p(0):p(n) + 1, :],
-        sin_sg[1][..., p(1):p(npy) + 1, :])
+    cry = torch.where(sely, yfx0 * rdya[..., p(0):p(ny) + 1, :],
+                      yfx0 * rdya[..., p(1):p(Y) + 1, :])
+    yfx = dx[..., esy, :] * yfx0 * torch.where(
+        sely, sin_sg[3][..., p(0):p(ny) + 1, :],
+        sin_sg[1][..., p(1):p(Y) + 1, :])
 
-    cs = SL(1, n)  # compute cells
-    ra_x = area[..., :, cs] + (xfx[..., :, :-1] - xfx[..., :, 1:])
-    ra_y = area[..., cs, :] + (yfx[..., :-1, :] - yfx[..., 1:, :])
+    csy = SL(1, ny)  # compute cells
+    csx = SL(1, nx)
+    ra_x = area[..., :, csx] + (xfx[..., :, :-1] - xfx[..., :, 1:])
+    ra_y = area[..., csy, :] + (yfx[..., :-1, :] - yfx[..., 1:, :])
 
     # ---------------------------------------------------------------
     # delp / w / pt transport (:904-1032)
@@ -574,230 +606,259 @@ def d_sw(
     yflux = yflux + fy
 
     if hydrostatic:
-        heat_source = delp.new_zeros(delp.shape[:-2] + (n, n))
+        heat_source = delp.new_zeros(delp.shape[:-2] + (ny, nx))
     else:
         dd8 = kgb * abs(dt)
         _, fx2w, fy2w = _del6_vt_flux_masked(
             nord_w,
             (damp_w_k * da_min_c, (damp_w_k * da_min_c) ** (nord_w + 1)),
             nordw0_k, w, grid, topo)
-        fxw_c = fx2w[..., cs, p(1):p(npx) + 1]
-        fyw_c = fy2w[..., p(1):p(npy) + 1, cs]
+        fxw_c = fx2w[..., csy, p(1):p(X) + 1]
+        fyw_c = fy2w[..., p(1):p(Y) + 1, csx]
         dw = ((fxw_c[..., :, :-1] - fxw_c[..., :, 1:])
-              + (fyw_c[..., :-1, :] - fyw_c[..., 1:, :])) * rarea[..., cs, cs]
-        heat_source = dd8 - dw * (w[..., cs, cs] + 0.5 * dw)
+              + (fyw_c[..., :-1, :] - fyw_c[..., 1:, :])) * rarea[..., csy, csx]
+        heat_source = dd8 - dw * (w[..., csy, csx] + 0.5 * dw)
         gxw, gyw = fv_tp_2d(w, crx, cry, hord_vt, xfx, yfx, grid, topo,
                             ra_x, ra_y, mfx=fx, mfy=fy)
-        w_num = (delp[..., cs, cs] * w[..., cs, cs]
+        w_num = (delp[..., csy, csx] * w[..., csy, csx]
                  + ((gxw[..., :, :-1] - gxw[..., :, 1:])
                     + (gyw[..., :-1, :] - gyw[..., 1:, :]))
-                 * rarea[..., cs, cs])
+                 * rarea[..., csy, csx])
 
     gx, gy = fv_tp_2d(pt, crx, cry, hord_tm, xfx, yfx, grid, topo, ra_x,
                       ra_y, mfx=fx, mfy=fy, mass=delp, damp_k=damp_tk)
 
     delp_new = delp.clone()
-    delp_new[..., cs, cs] += (((fx[..., :, :-1] - fx[..., :, 1:])
-                               + (fy[..., :-1, :] - fy[..., 1:, :]))
-                              * rarea[..., cs, cs])
+    delp_new[..., csy, csx] += (((fx[..., :, :-1] - fx[..., :, 1:])
+                                 + (fy[..., :-1, :] - fy[..., 1:, :]))
+                                * rarea[..., csy, csx])
     pt_new = pt.clone()
-    pt_new[..., cs, cs] = (
-        pt[..., cs, cs] * delp[..., cs, cs]
+    pt_new[..., csy, csx] = (
+        pt[..., csy, csx] * delp[..., csy, csx]
         + ((gx[..., :, :-1] - gx[..., :, 1:]) + (gy[..., :-1, :] - gy[..., 1:, :]))
-        * rarea[..., cs, cs]
-    ) / delp_new[..., cs, cs]
+        * rarea[..., csy, csx]
+    ) / delp_new[..., csy, csx]
 
     # ---------------------------------------------------------------
     # kinetic-energy fluxes on the B grid (:1045-1200)
     # ---------------------------------------------------------------
     dt5 = 0.5 * dt
     dt4 = 0.25 * dt
-    bsl = SL(1, npx)
-    ri = SL(2, npy - 1)
-    vb = u.new_zeros(u.shape[:-2] + (jb, jb))
-    vb[..., ri, ri] = dt5 * (
-        (vc[..., ri, p(1):p(npx - 2) + 1] + vc[..., ri, p(2):p(npx - 1) + 1])
-        - (uc[..., p(1):p(npy - 2) + 1, ri] + uc[..., p(2):p(npy - 1) + 1, ri])
-        * cosa[..., ri, ri]
-    ) * rsina[..., ri, ri]
-    vb[..., ri, p(1)] = dt4 * (-vt[..., ri, p(-1)]
-                               + 3.0 * (vt[..., ri, p(0)] + vt[..., ri, p(1)])
-                               - vt[..., ri, p(2)])
-    vb[..., ri, p(npx)] = dt4 * (-vt[..., ri, p(npx - 2)]
-                                 + 3.0 * (vt[..., ri, p(npx - 1)]
-                                          + vt[..., ri, p(npx)])
-                                 - vt[..., ri, p(npx + 1)])
-    vb[..., p(1), bsl] = dt5 * (vt[..., p(1), p(0):p(n) + 1]
-                                + vt[..., p(1), p(1):p(npx) + 1])
-    vb[..., p(npy), bsl] = dt5 * (vt[..., p(npy), p(0):p(n) + 1]
-                                  + vt[..., p(npy), p(1):p(npx) + 1])
+    bsly = SL(1, Y)
+    bslx = SL(1, X)
+    # the B lines between the face edges: 2..npx-1, across the tile's
+    # B lines 1..X (Y) where it has no face edge
+    riy = slice(p(2) if T.south else p(1), (p(Y - 1) if T.north else p(Y)) + 1)
+    rix = slice(p(2) if T.west else p(1), (p(X - 1) if T.east else p(X)) + 1)
 
-    ub_f = ytp_v(vb, v, dy, rdy, hord_mt, npx)   # flux of v (..., npx, npx)
-    ke_b = vb[..., bsl, bsl] * ub_f
+    def sh(s, d):
+        return slice(s.start + d, s.stop + d)
 
-    rall = SL(1, npy)
-    ub = u.new_zeros(u.shape[:-2] + (jb, jb))
-    ub[..., rall, ri] = dt5 * (
-        (uc[..., p(0):p(npy - 1) + 1, ri] + uc[..., p(1):p(npy) + 1, ri])
-        - (vc[..., rall, p(1):p(npx - 2) + 1] + vc[..., rall, p(2):p(npx - 1) + 1])
-        * cosa[..., rall, ri]
-    ) * rsina[..., rall, ri]
-    ub[..., p(1), ri] = dt4 * (-ut[..., p(-1), ri]
-                               + 3.0 * (ut[..., p(0), ri] + ut[..., p(1), ri])
-                               - ut[..., p(2), ri])
-    ub[..., p(npy), ri] = dt4 * (-ut[..., p(npy - 2), ri]
-                                 + 3.0 * (ut[..., p(npy - 1), ri]
-                                          + ut[..., p(npy), ri])
-                                 - ut[..., p(npy + 1), ri])
-    ub[..., rall, p(1)] = dt5 * (ut[..., p(0):p(n) + 1, p(1)]
-                                 + ut[..., p(1):p(npy) + 1, p(1)])
-    ub[..., rall, p(npx)] = dt5 * (ut[..., p(0):p(n) + 1, p(npx)]
-                                   + ut[..., p(1):p(npy) + 1, p(npx)])
+    vb = u.new_zeros(u.shape[:-2] + (jby, jbx))
+    vb[..., riy, rix] = dt5 * (
+        (vc[..., riy, sh(rix, -1)] + vc[..., riy, rix])
+        - (uc[..., sh(riy, -1), rix] + uc[..., riy, rix])
+        * cosa[..., riy, rix]
+    ) * rsina[..., riy, rix]
+    if T.west:
+        vb[..., riy, p(1)] = dt4 * (-vt[..., riy, p(-1)]
+                                    + 3.0 * (vt[..., riy, p(0)]
+                                             + vt[..., riy, p(1)])
+                                    - vt[..., riy, p(2)])
+    if T.east:
+        vb[..., riy, p(X)] = dt4 * (-vt[..., riy, p(X - 2)]
+                                    + 3.0 * (vt[..., riy, p(X - 1)]
+                                             + vt[..., riy, p(X)])
+                                    - vt[..., riy, p(X + 1)])
+    if T.south:
+        vb[..., p(1), bslx] = dt5 * (vt[..., p(1), p(0):p(nx) + 1]
+                                     + vt[..., p(1), p(1):p(X) + 1])
+    if T.north:
+        vb[..., p(Y), bslx] = dt5 * (vt[..., p(Y), p(0):p(nx) + 1]
+                                     + vt[..., p(Y), p(1):p(X) + 1])
 
-    vb_f = xtp_u(ub, u, dx, rdx, hord_mt, npx)
-    ke_b = 0.5 * (ke_b + ub[..., bsl, bsl] * vb_f)
+    ub_f = ytp_v(vb, v, dy, rdy, hord_mt, npx, T)   # flux of v (..., Y, X)
+    ke_b = vb[..., bsly, bslx] * ub_f
+
+    ub = u.new_zeros(u.shape[:-2] + (jby, jbx))
+    ub[..., bsly, rix] = dt5 * (
+        (uc[..., p(0):p(Y - 1) + 1, rix] + uc[..., p(1):p(Y) + 1, rix])
+        - (vc[..., bsly, sh(rix, -1)] + vc[..., bsly, rix])
+        * cosa[..., bsly, rix]
+    ) * rsina[..., bsly, rix]
+    if T.south:
+        ub[..., p(1), rix] = dt4 * (-ut[..., p(-1), rix]
+                                    + 3.0 * (ut[..., p(0), rix]
+                                             + ut[..., p(1), rix])
+                                    - ut[..., p(2), rix])
+    if T.north:
+        ub[..., p(Y), rix] = dt4 * (-ut[..., p(Y - 2), rix]
+                                    + 3.0 * (ut[..., p(Y - 1), rix]
+                                             + ut[..., p(Y), rix])
+                                    - ut[..., p(Y + 1), rix])
+    if T.west:
+        ub[..., bsly, p(1)] = dt5 * (ut[..., p(0):p(ny) + 1, p(1)]
+                                     + ut[..., p(1):p(Y) + 1, p(1)])
+    if T.east:
+        ub[..., bsly, p(X)] = dt5 * (ut[..., p(0):p(ny) + 1, p(X)]
+                                     + ut[..., p(1):p(Y) + 1, p(X)])
+
+    vb_f = xtp_u(ub, u, dx, rdx, hord_mt, npx, T)
+    ke_b = 0.5 * (ke_b + ub[..., bsly, bslx] * vb_f)
 
     # corner KE fixes (:1184-1215)
     def at(i, j):
         return (Ellipsis, p(j), p(i))
 
     dt6 = dt / 6.0
-    X = npx
-    Y = npy
-    ke_b[..., 0, 0] = dt6 * (
-        (ut[at(1, 1)] + ut[at(1, 0)]) * u[..., p(1), p(1)]
-        + (vt[at(1, 1)] + vt[at(0, 1)]) * v[..., p(1), p(1)]
-        + (ut[at(1, 1)] + vt[at(1, 1)]) * u[..., p(1), p(0)])
-    ke_b[..., 0, X - 1] = dt6 * (
-        (ut[at(X, 1)] + ut[at(X, 0)]) * u[..., p(1), p(X - 1)]
-        + (vt[at(X, 1)] + vt[at(X - 1, 1)]) * v[..., p(1), p(X)]
-        + (ut[at(X, 1)] - vt[at(X - 1, 1)]) * u[..., p(1), p(X)])
-    ke_b[..., Y - 1, X - 1] = dt6 * (
-        (ut[at(X, Y)] + ut[at(X, Y - 1)]) * u[..., p(Y), p(X - 1)]
-        + (vt[at(X, Y)] + vt[at(X - 1, Y)]) * v[..., p(Y - 1), p(X)]
-        + (ut[at(X, Y - 1)] + vt[at(X - 1, Y)]) * u[..., p(Y), p(X)])
-    ke_b[..., Y - 1, 0] = dt6 * (
-        (ut[at(1, Y)] + ut[at(1, Y - 1)]) * u[..., p(Y), p(1)]
-        + (vt[at(1, Y)] + vt[at(0, Y)]) * v[..., p(Y - 1), p(1)]
-        + (ut[at(1, Y - 1)] - vt[at(1, Y)]) * u[..., p(Y), p(0)])
-    ke = u.new_zeros(u.shape[:-2] + (jb, jb))
-    ke[..., bsl, bsl] = ke_b
+    if T.south and T.west:
+        ke_b[..., 0, 0] = dt6 * (
+            (ut[at(1, 1)] + ut[at(1, 0)]) * u[..., p(1), p(1)]
+            + (vt[at(1, 1)] + vt[at(0, 1)]) * v[..., p(1), p(1)]
+            + (ut[at(1, 1)] + vt[at(1, 1)]) * u[..., p(1), p(0)])
+    if T.south and T.east:
+        ke_b[..., 0, X - 1] = dt6 * (
+            (ut[at(X, 1)] + ut[at(X, 0)]) * u[..., p(1), p(X - 1)]
+            + (vt[at(X, 1)] + vt[at(X - 1, 1)]) * v[..., p(1), p(X)]
+            + (ut[at(X, 1)] - vt[at(X - 1, 1)]) * u[..., p(1), p(X)])
+    if T.north and T.east:
+        ke_b[..., Y - 1, X - 1] = dt6 * (
+            (ut[at(X, Y)] + ut[at(X, Y - 1)]) * u[..., p(Y), p(X - 1)]
+            + (vt[at(X, Y)] + vt[at(X - 1, Y)]) * v[..., p(Y - 1), p(X)]
+            + (ut[at(X, Y - 1)] + vt[at(X - 1, Y)]) * u[..., p(Y), p(X)])
+    if T.north and T.west:
+        ke_b[..., Y - 1, 0] = dt6 * (
+            (ut[at(1, Y)] + ut[at(1, Y - 1)]) * u[..., p(Y), p(1)]
+            + (vt[at(1, Y)] + vt[at(0, Y)]) * v[..., p(Y - 1), p(1)]
+            + (ut[at(1, Y - 1)] - vt[at(1, Y)]) * u[..., p(Y), p(0)])
+    ke = u.new_zeros(u.shape[:-2] + (jby, jbx))
+    ke[..., bsly, bslx] = ke_b
 
     # ---------------------------------------------------------------
     # circulation components & relative vorticity (:1217-1235)
     # ---------------------------------------------------------------
-    vt_c = u * dx      # (..., jb, jc)
-    ut_c = v * dy      # (..., jc, jb)
-    wk = rarea * ((vt_c[..., 0:jc, :] - vt_c[..., 1:jc + 1, :])
-                  + (ut_c[..., :, 1:jc + 1] - ut_c[..., :, 0:jc]))
+    vt_c = u * dx      # (..., jby, jcx)
+    ut_c = v * dy      # (..., jcy, jbx)
+    wk = rarea * ((vt_c[..., 0:jcy, :] - vt_c[..., 1:jcy + 1, :])
+                  + (ut_c[..., :, 1:jcx + 1] - ut_c[..., :, 0:jcx]))
 
     w_new = w
     if not hydrostatic:
         w_new = w.clone()
-        w_new[..., cs, cs] = w_num / delp_new[..., cs, cs] + dw
+        w_new[..., csy, csx] = w_num / delp_new[..., csy, csx] + dw
 
     # ---------------------------------------------------------------
     # divergence damping (:1297-1432)
     # ---------------------------------------------------------------
-    bs = SL(1, npx)
+    bsy, bsx = bsly, bslx
 
     def _div_damp_d2(uS, vS, vaS, uaS, ucS, vcS, d2kS):
         """del-2 path: B-grid divergence from covariant winds; returns
-        (vort_b0 at B 1..npx, delpc on the full B array)."""
-        csx = SL(0, n + 1)
-        ptc_s = uS.new_zeros(uS.shape[:-2] + (jb, jc))
-        ptc_s[..., bs, csx] = (
-            uS[..., bs, csx]
-            - 0.5 * (vaS[..., p(0):p(npy - 1) + 1, csx]
-                     + vaS[..., p(1):p(npy) + 1, csx]) * cosa_v[..., bs, csx]
-        ) * dyc[..., bs, csx] * sina_v[..., bs, csx]
-        for jrow in (p(1), p(npy)):
+        (vort_b0 at B 1..X/Y, delpc on the full B array)."""
+        csx = SL(0, nx + 1)
+        ptc_s = uS.new_zeros(uS.shape[:-2] + (jby, jcx))
+        ptc_s[..., bsy, csx] = (
+            uS[..., bsy, csx]
+            - 0.5 * (vaS[..., p(0):p(Y - 1) + 1, csx]
+                     + vaS[..., p(1):p(Y) + 1, csx]) * cosa_v[..., bsy, csx]
+        ) * dyc[..., bsy, csx] * sina_v[..., bsy, csx]
+        for jrow in [p(1)] * T.south + [p(Y)] * T.north:
             selj = fbool(vcS[..., jrow, csx] > 0.0)
             ptc_s[..., jrow, csx] = (
                 uS[..., jrow, csx] * dyc[..., jrow, csx]
                 * torch.where(selj, sin_sg[3][..., jrow - 1, csx],
                               sin_sg[1][..., jrow, csx]))
-        csy = SL(0, n + 1)
-        is2 = SL(2, npx - 1)
-        vort_s = uS.new_zeros(uS.shape[:-2] + (jc, jb))
-        vort_s[..., csy, is2] = (
-            vS[..., csy, is2]
-            - 0.5 * (uaS[..., csy, p(1):p(npx - 2) + 1]
-                     + uaS[..., csy, p(2):p(npx - 1) + 1]) * cosa_u[..., csy, is2]
-        ) * dxc[..., csy, is2] * sina_u[..., csy, is2]
-        for icol in (p(1), p(npx)):
+        csy = SL(0, ny + 1)
+        vort_s = uS.new_zeros(uS.shape[:-2] + (jcy, jbx))
+        vort_s[..., csy, rix] = (
+            vS[..., csy, rix]
+            - 0.5 * (uaS[..., csy, sh(rix, -1)]
+                     + uaS[..., csy, rix]) * cosa_u[..., csy, rix]
+        ) * dxc[..., csy, rix] * sina_u[..., csy, rix]
+        for icol in [p(1)] * T.west + [p(X)] * T.east:
             seli = fbool(ucS[..., csy, icol] > 0.0)
             vort_s[..., csy, icol] = (
                 vS[..., csy, icol] * dxc[..., csy, icol]
                 * torch.where(seli, sin_sg[2][..., csy, icol - 1],
                               sin_sg[0][..., csy, icol]))
-        delpc_b = (vort_s[..., p(0):p(npy - 1) + 1, bs]
-                   - vort_s[..., p(1):p(npy) + 1, bs]
-                   + ptc_s[..., bs, p(0):p(npx - 1) + 1]
-                   - ptc_s[..., bs, p(1):p(npx) + 1])
+        delpc_b = (vort_s[..., p(0):p(Y - 1) + 1, bsx]
+                   - vort_s[..., p(1):p(Y) + 1, bsx]
+                   + ptc_s[..., bsy, p(0):p(X - 1) + 1]
+                   - ptc_s[..., bsy, p(1):p(X) + 1])
         # 3-term corner formulas, set directly
-        delpc_b[..., 0, 0] = (-vort_s[..., p(1), p(1)]
-                              + ptc_s[..., p(1), p(0)] - ptc_s[..., p(1), p(1)])
-        delpc_b[..., 0, X - 1] = (-vort_s[..., p(1), p(X)]
-                                  + ptc_s[..., p(1), p(X - 1)]
-                                  - ptc_s[..., p(1), p(X)])
-        delpc_b[..., Y - 1, X - 1] = (vort_s[..., p(Y - 1), p(X)]
-                                      + ptc_s[..., p(Y), p(X - 1)]
-                                      - ptc_s[..., p(Y), p(X)])
-        delpc_b[..., Y - 1, 0] = (vort_s[..., p(Y - 1), p(1)]
-                                  + ptc_s[..., p(Y), p(0)]
-                                  - ptc_s[..., p(Y), p(1)])
-        delpc_b = rarea_c[..., bs, bs] * delpc_b
+        if T.south and T.west:
+            delpc_b[..., 0, 0] = (-vort_s[..., p(1), p(1)]
+                                  + ptc_s[..., p(1), p(0)]
+                                  - ptc_s[..., p(1), p(1)])
+        if T.south and T.east:
+            delpc_b[..., 0, X - 1] = (-vort_s[..., p(1), p(X)]
+                                      + ptc_s[..., p(1), p(X - 1)]
+                                      - ptc_s[..., p(1), p(X)])
+        if T.north and T.east:
+            delpc_b[..., Y - 1, X - 1] = (vort_s[..., p(Y - 1), p(X)]
+                                          + ptc_s[..., p(Y), p(X - 1)]
+                                          - ptc_s[..., p(Y), p(X)])
+        if T.north and T.west:
+            delpc_b[..., Y - 1, 0] = (vort_s[..., p(Y - 1), p(1)]
+                                      + ptc_s[..., p(Y), p(0)]
+                                      - ptc_s[..., p(Y), p(1)])
+        delpc_b = rarea_c[..., bsy, bsx] * delpc_b
         dampc = da_min_c * fmax(d2kS, fmin(0.20, dddmp * fabs(delpc_b * dt)))
         vort_b0 = dampc * delpc_b
-        delpc_full = uS.new_zeros(uS.shape[:-2] + (jb, jb))
-        delpc_full[..., bs, bs] = delpc_b
+        delpc_full = uS.new_zeros(uS.shape[:-2] + (jby, jbx))
+        delpc_full[..., bsy, bsx] = delpc_b
         return vort_b0, delpc_full
 
     def _div_damp_dn(divg_dS, wkS, d2kS):
-        """del-(2nord+2) path on divg_d; returns (vort_bn at B 1..npx, dd)."""
+        """del-(2nord+2) path on divg_d; returns (vort_bn at B 1..X/Y, dd)."""
         dd = divg_dS
         n2 = nord + 1
         for nloop in range(1, nord + 1):
             fill_c = nord - nloop != 0
             if fill_c:
                 dd = halo.fill_corners_scalar(dd, topo, "bgrid", 1)
-            vcd = dd.new_zeros(dd.shape[:-2] + (jb, jc))
-            vcd[..., :, 0:jc] = (dd[..., :, 1:jc + 1] - dd[..., :, 0:jc]) * divg_u
+            vcd = dd.new_zeros(dd.shape[:-2] + (jby, jcx))
+            vcd[..., :, 0:jcx] = (dd[..., :, 1:jcx + 1]
+                                  - dd[..., :, 0:jcx]) * divg_u
             if fill_c:
                 dd = halo.fill_corners_scalar(dd, topo, "bgrid", 2)
-            ucd = dd.new_zeros(dd.shape[:-2] + (jc, jb))
-            ucd[..., 0:jc, :] = (dd[..., 1:jc + 1, :] - dd[..., 0:jc, :]) * divg_v
+            ucd = dd.new_zeros(dd.shape[:-2] + (jcy, jbx))
+            ucd[..., 0:jcy, :] = (dd[..., 1:jcy + 1, :]
+                                  - dd[..., 0:jcy, :]) * divg_v
             if fill_c:
                 vcd, ucd = halo.fill_corners_vector(vcd, ucd, topo, "dgrid")
             dd_new = torch.zeros_like(dd)
-            dd_new[..., 1:jc, 1:jc] = (
-                (ucd[..., 0:jc - 1, 1:jc] - ucd[..., 1:jc, 1:jc])
-                + (vcd[..., 1:jc, 0:jc - 1] - vcd[..., 1:jc, 1:jc]))
-            dd_new[..., p(1), p(1)] = (-ucd[..., p(1), p(1)]
-                                       + vcd[..., p(1), p(0)]
-                                       - vcd[..., p(1), p(1)])
-            dd_new[..., p(1), p(X)] = (-ucd[..., p(1), p(X)]
-                                       + vcd[..., p(1), p(X - 1)]
-                                       - vcd[..., p(1), p(X)])
-            dd_new[..., p(Y), p(X)] = (ucd[..., p(Y - 1), p(X)]
-                                       + vcd[..., p(Y), p(X - 1)]
-                                       - vcd[..., p(Y), p(X)])
-            dd_new[..., p(Y), p(1)] = (ucd[..., p(Y - 1), p(1)]
-                                       + vcd[..., p(Y), p(0)]
-                                       - vcd[..., p(Y), p(1)])
+            dd_new[..., 1:jcy, 1:jcx] = (
+                (ucd[..., 0:jcy - 1, 1:jcx] - ucd[..., 1:jcy, 1:jcx])
+                + (vcd[..., 1:jcy, 0:jcx - 1] - vcd[..., 1:jcy, 1:jcx]))
+            if T.south and T.west:
+                dd_new[..., p(1), p(1)] = (-ucd[..., p(1), p(1)]
+                                           + vcd[..., p(1), p(0)]
+                                           - vcd[..., p(1), p(1)])
+            if T.south and T.east:
+                dd_new[..., p(1), p(X)] = (-ucd[..., p(1), p(X)]
+                                           + vcd[..., p(1), p(X - 1)]
+                                           - vcd[..., p(1), p(X)])
+            if T.north and T.east:
+                dd_new[..., p(Y), p(X)] = (ucd[..., p(Y - 1), p(X)]
+                                           + vcd[..., p(Y), p(X - 1)]
+                                           - vcd[..., p(Y), p(X)])
+            if T.north and T.west:
+                dd_new[..., p(Y), p(1)] = (ucd[..., p(Y - 1), p(1)]
+                                           + vcd[..., p(Y), p(0)]
+                                           - vcd[..., p(Y), p(1)])
             dd = dd_new * rarea_c
         if dddmp < 1.0e-5:
-            vort_sm = dd.new_zeros(dd.shape[:-2] + (npx, npx))
+            vort_sm = dd.new_zeros(dd.shape[:-2] + (Y, X))
         else:
             wkb = a2b_ord4(wkS, grid)
-            sm2 = divg_dS[..., bs, bs] ** 2 + wkb[..., bs, bs] ** 2
+            sm2 = divg_dS[..., bsy, bsx] ** 2 + wkb[..., bsy, bsx] ** 2
             smpos = fbool(sm2 > 0.0)
             vort_sm = abs(dt) * torch.where(
                 smpos, torch.sqrt(torch.where(smpos, sm2, 1.0)), 0.0)
         dd8 = (da_min_c * d4_bg) ** n2
         damp2 = da_min_c * fmax(d2kS, fmin(0.20, dddmp * vort_sm))
-        vort_bn = damp2 * divg_dS[..., bs, bs] + dd8 * dd[..., bs, bs]
+        vort_bn = damp2 * divg_dS[..., bsy, bsx] + dd8 * dd[..., bsy, bsx]
         return vort_bn, dd
 
     # del-2 levels [0, k0) (some of them del-n when `mixed`), del-n after
@@ -828,7 +889,7 @@ def d_sw(
             divg_d_new = torch.cat([dnewA, ddB], dim=0)
         else:
             vort_b, divd_saved, divg_d_new = vort_bA, dsavA, dnewA
-    ke[..., bs, bs] += vort_b
+    ke[..., bsy, bsx] += vort_b
 
     # ---------------------------------------------------------------
     # absolute-vorticity transport & wind update (:1450-1486)
@@ -836,11 +897,11 @@ def d_sw(
     vort_a = wk + f0
     fxv, fyv = fv_tp_2d(vort_a, crx, cry, hord_vt, xfx, yfx, grid, topo,
                         ra_x, ra_y)
-    u_c = (vt_c[..., bs, cs]
-           + (ke[..., bs, p(1):p(n) + 1] - ke[..., bs, p(2):p(npx) + 1])
+    u_c = (vt_c[..., bsy, csx]
+           + (ke[..., bsy, p(1):p(nx) + 1] - ke[..., bsy, p(2):p(X) + 1])
            + fyv)
-    v_c = (ut_c[..., cs, bs]
-           + (ke[..., p(1):p(n) + 1, bs] - ke[..., p(2):p(npy) + 1, bs])
+    v_c = (ut_c[..., csy, bsx]
+           + (ke[..., p(1):p(ny) + 1, bsx] - ke[..., p(2):p(Y) + 1, bsx])
            - fxv)
     if do_vort_damp:
         # vorticity damping (:1490-1494)
@@ -850,37 +911,37 @@ def d_sw(
             nordv0_k, wk, grid, topo)
     if d_con > 1.0e-5:
         # heating due to the damping (:1436-1448, 1496-1530)
-        ub_h = vort_b[..., :, 0:n] - vort_b[..., :, 1:npx]
-        vb_h = vort_b[..., 0:n, :] - vort_b[..., 1:npy, :]
+        ub_h = vort_b[..., :, 0:nx] - vort_b[..., :, 1:X]
+        vb_h = vort_b[..., 0:ny, :] - vort_b[..., 1:Y, :]
         if do_vort_damp:
-            ub_h = ub_h + fy2d[..., bs, cs]
-            vb_h = vb_h - fx2d[..., cs, bs]
-        ub_h2 = ub_h * rdx[..., bs, cs]
-        fy_h = u_c * rdx[..., bs, cs]
+            ub_h = ub_h + fy2d[..., bsy, csx]
+            vb_h = vb_h - fx2d[..., csy, bsx]
+        ub_h2 = ub_h * rdx[..., bsy, csx]
+        fy_h = u_c * rdx[..., bsy, csx]
         gy_h = fy_h * ub_h2
-        vb_h2 = vb_h * rdy[..., cs, bs]
-        fx_h = v_c * rdy[..., cs, bs]
+        vb_h2 = vb_h * rdy[..., csy, bsx]
+        fx_h = v_c * rdy[..., csy, bsx]
         gx_h = fx_h * vb_h2
         dampc2 = 0.25 * dcon_k
-        u2 = fy_h[..., 0:n, :] + fy_h[..., 1:n + 1, :]
-        du2 = ub_h2[..., 0:n, :] + ub_h2[..., 1:n + 1, :]
-        v2 = fx_h[..., :, 0:n] + fx_h[..., :, 1:n + 1]
-        dv2 = vb_h2[..., :, 0:n] + vb_h2[..., :, 1:n + 1]
-        heat_source = delp_new[..., cs, cs] * (
-            heat_source - dampc2 * rsin2[..., cs, cs] * (
-                (ub_h2[..., 0:n, :] ** 2 + ub_h2[..., 1:n + 1, :] ** 2
-                 + vb_h2[..., :, 0:n] ** 2 + vb_h2[..., :, 1:n + 1] ** 2)
-                + 2.0 * (gy_h[..., 0:n, :] + gy_h[..., 1:n + 1, :]
-                         + gx_h[..., :, 0:n] + gx_h[..., :, 1:n + 1])
-                - cosa_s[..., cs, cs] * (u2 * dv2 + v2 * du2 + du2 * dv2)))
+        u2 = fy_h[..., 0:ny, :] + fy_h[..., 1:ny + 1, :]
+        du2 = ub_h2[..., 0:ny, :] + ub_h2[..., 1:ny + 1, :]
+        v2 = fx_h[..., :, 0:nx] + fx_h[..., :, 1:nx + 1]
+        dv2 = vb_h2[..., :, 0:nx] + vb_h2[..., :, 1:nx + 1]
+        heat_source = delp_new[..., csy, csx] * (
+            heat_source - dampc2 * rsin2[..., csy, csx] * (
+                (ub_h2[..., 0:ny, :] ** 2 + ub_h2[..., 1:ny + 1, :] ** 2
+                 + vb_h2[..., :, 0:nx] ** 2 + vb_h2[..., :, 1:nx + 1] ** 2)
+                + 2.0 * (gy_h[..., 0:ny, :] + gy_h[..., 1:ny + 1, :]
+                         + gx_h[..., :, 0:nx] + gx_h[..., :, 1:nx + 1])
+                - cosa_s[..., csy, csx] * (u2 * dv2 + v2 * du2 + du2 * dv2)))
     if do_vort_damp:
         # add the diffusive fluxes to the momentum (:1533-1543)
-        u_c = u_c + fy2d[..., bs, cs]
-        v_c = v_c + (-fx2d[..., cs, bs])
+        u_c = u_c + fy2d[..., bsy, csx]
+        v_c = v_c + (-fx2d[..., csy, bsx])
     u_new = u.clone()
-    u_new[..., bs, cs] = u_c
+    u_new[..., bsy, csx] = u_c
     v_new = v.clone()
-    v_new[..., cs, bs] = v_c
+    v_new[..., csy, bsx] = v_c
 
     return dict(
         delp=delp_new, pt=pt_new, u=u_new, v=v_new, w=w_new,

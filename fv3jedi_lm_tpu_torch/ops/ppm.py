@@ -127,9 +127,10 @@ def pert_ppm(a0, al, ar, iv):
     return fwhere(opp, al_n, 0.0), fwhere(opp, ar_n, 0.0)
 
 
-def _bl_br_low(q, dxa, iord, A: _Ax):
+def _bl_br_low(q, dxa, iord, A: _Ax, lo=True, hi=True):
     """bl/br for iord < 8 with the cubed-sphere face-edge interface
-    overrides (tp_core_nlm.F90:341-369); cell-aligned."""
+    overrides (tp_core_nlm.F90:341-369) at the low (west/south) and high
+    (east/north) face edges where `lo`/`hi`; cell-aligned."""
     ic = A.size(q)
     n = ic - 2 * NG
     z = A.zeros_like_w(q, 2)
@@ -142,26 +143,30 @@ def _bl_br_low(q, dxa, iord, A: _Ax):
                     A.rng(al, ic, ic + 1)])
     e_w = NG          # west face edge index
     e_e = NG + n      # east face edge
-    edge_vals = [
-        (e_w - 1, C1 * A.get(q, e_w - 3) + C2 * A.get(q, e_w - 2)
-         + C3 * A.get(q, e_w - 1)),
-        (e_w, _edge_interp(q, dxa, e_w, A)),
-        (e_w + 1, C3 * A.get(q, e_w) + C2 * A.get(q, e_w + 1)
-         + C1 * A.get(q, e_w + 2)),
-        (e_e - 1, C1 * A.get(q, e_e - 3) + C2 * A.get(q, e_e - 2)
-         + C3 * A.get(q, e_e - 1)),
-        (e_e, _edge_interp(q, dxa, e_e, A)),
-        (e_e + 1, C3 * A.get(q, e_e) + C2 * A.get(q, e_e + 1)
-         + C1 * A.get(q, e_e + 2)),
-    ]
+    edge_vals = []
+    if lo:
+        edge_vals += [
+            (e_w - 1, C1 * A.get(q, e_w - 3) + C2 * A.get(q, e_w - 2)
+             + C3 * A.get(q, e_w - 1)),
+            (e_w, _edge_interp(q, dxa, e_w, A)),
+            (e_w + 1, C3 * A.get(q, e_w) + C2 * A.get(q, e_w + 1)
+             + C1 * A.get(q, e_w + 2))]
+    if hi:
+        edge_vals += [
+            (e_e - 1, C1 * A.get(q, e_e - 3) + C2 * A.get(q, e_e - 2)
+             + C3 * A.get(q, e_e - 1)),
+            (e_e, _edge_interp(q, dxa, e_e, A)),
+            (e_e + 1, C3 * A.get(q, e_e) + C2 * A.get(q, e_e + 1)
+             + C1 * A.get(q, e_e + 2))]
     if iord == 7:
         edge_vals = [(e, fmax(0.0, v)) for e, v in edge_vals]
     al = set_cols(al, edge_vals, A)
     return A.rng(al, 0, ic) - q, A.rng(al, 1, ic + 1) - q
 
 
-def _bl_br_high(q, dxa, iord, A: _Ax):
-    """bl/br for iord >= 8 (monotone family) with edge fixes; cell-aligned."""
+def _bl_br_high(q, dxa, iord, A: _Ax, lo=True, hi=True):
+    """bl/br for iord >= 8 (monotone family) with the edge fixes at the
+    face edges `lo`/`hi` as in _bl_br_low; cell-aligned."""
     ic = A.size(q)
     n = ic - 2 * NG
 
@@ -216,6 +221,29 @@ def _bl_br_high(q, dxa, iord, A: _Ax):
     # ---- cubed-sphere edge fixes (tp_core_nlm.F90:531-569) ----
     e_w, e_e = NG, NG + n
     i0 = e_w - 1
+    iN = e_e - 2
+    parts_l, parts_r = [], []
+    if lo:
+        b_l_w, b_r_w = _west_fix(q, dxa, dm, i0, e_w, A)
+        parts_l += [A.rng(bl, 0, i0), b_l_w]
+        parts_r += [A.rng(br, 0, i0), b_r_w]
+        start = i0 + 3
+    else:
+        start = 0
+    if hi:
+        b_l_e, b_r_e = _east_fix(q, dxa, dm, iN, e_e, A)
+        parts_l += [A.rng(bl, start, iN), b_l_e, A.rng(bl, iN + 3, A.size(q))]
+        parts_r += [A.rng(br, start, iN), b_r_e, A.rng(br, iN + 3, A.size(q))]
+    else:
+        parts_l.append(A.rng(bl, start, A.size(q)))
+        parts_r.append(A.rng(br, start, A.size(q)))
+    if len(parts_l) == 1:
+        return bl, br
+    return A.cat(parts_l), A.cat(parts_r)
+
+
+def _west_fix(q, dxa, dm, i0, e_w, A):
+    """bl/br of the three cells right of the west (south) face edge."""
     bl0 = S14 * A.get(dm, i0 - 1) + S11 * (A.get(q, i0 - 1) - A.get(q, i0))
     xt = _edge_interp(q, dxa, e_w, A)
     xt = fmax(xt, fmin(fmin(A.get(q, i0 - 1), A.get(q, i0)),
@@ -231,11 +259,13 @@ def _bl_br_high(q, dxa, iord, A: _Ax):
     al3 = 0.5 * (A.get(q, i0 + 2) + A.get(q, i0 + 3)) + R3 * (
         A.get(dm, i0 + 2) - A.get(dm, i0 + 3))
     br2 = al3 - A.get(q, i0 + 2)
-    b_l_w, b_r_w = pert_ppm(A.rng(q, i0, i0 + 3), A.stk([bl0, bl1, bl2]),
-                            A.stk([br0, br1, br2]), 1)
+    return pert_ppm(A.rng(q, i0, i0 + 3), A.stk([bl0, bl1, bl2]),
+                    A.stk([br0, br1, br2]), 1)
 
-    # east edge: cells npx-2, npx-1, npx -> padded e_e-2, e_e-1, e_e
-    iN = e_e - 2
+
+def _east_fix(q, dxa, dm, iN, e_e, A):
+    """bl/br of the east (north) face edge's cells npx-2, npx-1, npx ->
+    padded e_e-2, e_e-1, e_e."""
     blN0 = (0.5 * (A.get(q, iN - 1) + A.get(q, iN))
             + R3 * (A.get(dm, iN - 1) - A.get(dm, iN)) - A.get(q, iN))
     xtN = (S15 * A.get(q, iN + 1) + S11 * A.get(q, iN)
@@ -250,14 +280,8 @@ def _bl_br_high(q, dxa, iord, A: _Ax):
     brN1 = xtE - A.get(q, iN + 1)
     blN2 = xtE - A.get(q, iN + 2)
     brN2 = S11 * (A.get(q, iN + 3) - A.get(q, iN + 2)) - S14 * A.get(dm, iN + 3)
-    b_l_e, b_r_e = pert_ppm(A.rng(q, iN, iN + 3), A.stk([blN0, blN1, blN2]),
-                            A.stk([brN0, brN1, brN2]), 1)
-
-    def put(base, west, east):
-        return A.cat([A.rng(base, 0, i0), west, A.rng(base, i0 + 3, iN),
-                      east, A.rng(base, iN + 3, ic)])
-
-    return put(bl, b_l_w, b_l_e), put(br, b_r_w, b_r_e)
+    return pert_ppm(A.rng(q, iN, iN + 3), A.stk([blN0, blN1, blN2]),
+                    A.stk([brN0, brN1, brN2]), 1)
 
 
 def _flux_from_blbr(q, c, bl, br, e0, e1, A: _Ax):
@@ -275,10 +299,11 @@ def _flux_from_blbr(q, c, bl, br, e0, e1, A: _Ax):
     return fwhere(c > 0.0, fpos, fneg)
 
 
-def xppm(q, c, iord, dxa, ax: int = -1):
+def xppm(q, c, iord, dxa, ax: int = -1, tile=None):
     """PPM flux along axis `ax`.  q: padded width IC along ax; c: courant
     at the compute edges [NG, NG+n+1) along ax.  Returns the flux, width
-    n+1 along ax.
+    n+1 along ax.  The face-edge fixes act at the edges of the model's
+    `tile` along ax that it owns (both when None: a whole face).
 
     `iord` may be a per-level blend `(iord_main, iord_sponge, ksp)` with
     ksp a static int: levels [0, ksp) use the sponge scheme (the
@@ -287,11 +312,13 @@ def xppm(q, c, iord, dxa, ax: int = -1):
     band."""
     if isinstance(iord, tuple):
         main, sponge, ksp = iord
-        return torch.cat([xppm(q[:ksp], c[:ksp], sponge, dxa, ax),
-                          xppm(q[ksp:], c[ksp:], main, dxa, ax)], dim=0)
+        return torch.cat([xppm(q[:ksp], c[:ksp], sponge, dxa, ax, tile),
+                          xppm(q[ksp:], c[ksp:], main, dxa, ax, tile)],
+                         dim=0)
     if not 1 <= iord <= 13:
         raise ValueError(f"xppm iord={iord!r}: the schemes are 1-13")
     A = _AXX if ax == -1 else _AXY
+    lo, hi = edges(tile, ax)[:2]
     n = A.size(q) - 2 * NG
     if A.size(c) != n + 1:
         raise ValueError(f"courant width {A.size(c)} != {n + 1}")
@@ -299,9 +326,9 @@ def xppm(q, c, iord, dxa, ax: int = -1):
     if iord == 1:
         return fwhere(c > 0.0, A.rng(q, e0 - 1, e1 - 1), A.rng(q, e0, e1))
     if iord >= 8:
-        bl, br = _bl_br_high(q, dxa, iord, A)
+        bl, br = _bl_br_high(q, dxa, iord, A, lo, hi)
         return _flux_from_blbr(q, c, bl, br, e0, e1, A)
-    bl, br = _bl_br_low(q, dxa, iord, A)
+    bl, br = _bl_br_low(q, dxa, iord, A, lo, hi)
     if iord in (2, 7):
         return _flux_from_blbr(q, c, bl, br, e0, e1, A)
     return _flux_selective(q, c, bl, br, iord, e0, e1, A)
@@ -359,6 +386,17 @@ def _flux_selective(q, c, bl, br, iord, e0, e1, A: _Ax):
     return base + torch.where(smt5L | smt5R, fx1, 0.0)
 
 
-def yppm(q, c, jord, dya):
+def yppm(q, c, jord, dya, tile=None):
     """PPM flux in y: the same operator along axis -2."""
-    return xppm(q, c, jord, dya, ax=-2)
+    return xppm(q, c, jord, dya, ax=-2, tile=tile)
+
+
+def edges(tile, ax):
+    """Whether `tile` owns the low and the high face edge along `ax` and
+    the low and the high one across it (all of them when None: a whole
+    face)."""
+    if tile is None:
+        return True, True, True, True
+    if ax == -1:
+        return tile.west, tile.east, tile.south, tile.north
+    return tile.south, tile.north, tile.west, tile.east

@@ -10,9 +10,10 @@ each level adds neighbouring pairs and keeps the exact rounding error of
 every addition (Knuth's TwoSum, branch-free), the errors summed alongside.
 That is about log2(n) levels of a few tensor operations (16 at c96)
 instead of n sequential steps, and the result is the exact sum to within
-an ulp or two, whatever the order the values come in.  On a face
-decomposition each rank gathers the six faces' values before the tree, so
-the tree, and its result, are the single process's bit for bit.
+an ulp or two, whatever the order the values come in.  On a
+decomposition each rank gathers every rank's tiles and assembles the
+cube's six faces before the tree, so the tree, and its result, are the
+single process's bit for bit.
 
 `g_sum` is linear in `p`, so it is a `torch.autograd.Function` whose
 tangent is the g_sum of the tangent and whose cotangent is the incoming
@@ -54,9 +55,9 @@ def _sum(x, reproduce):
 
 
 def _gather(x, faces):
-    """The whole cube's (6, ...) field: `x` itself on one process, the six
-    ranks' faces joined in face order on a face decomposition."""
-    return x if faces is None else faces.all_gather(x, -3)
+    """The whole cube's (6, n, n) field: `x` itself on one process, every
+    rank's tiles assembled in face order on a decomposition."""
+    return x if faces is None else faces.gather_cube(x)
 
 
 def _g_sum(p, area, total, reproduce, faces):
@@ -89,14 +90,14 @@ class _GSum(torch.autograd.Function):
         if ctx.faces is not None:
             # every rank holds the sum and passes it on: its cotangent is
             # the sum of the ranks' cotangents
-            g = ctx.faces.all_gather(g.reshape(1), 0).sum()
+            g = torch.cat(ctx.faces.all_gather(g.reshape(1))).sum()
         w = area if total is None else area / total
         return g * w, None, None, None, None
 
 
 def global_area(area, reproduce: bool = True, faces=None):
-    """The sum of `area` over the cube, gathered from the six ranks on a
-    face decomposition: g_sum's divisor in mode 1.  The reference's g_sum
+    """The sum of `area` over the cube, gathered from every rank on a
+    decomposition: g_sum's divisor in mode 1.  The reference's g_sum
     sums it on its first call and keeps it (`global_area`); a caller that
     sums in mode 1 more than once computes it here once and passes it."""
     return _sum(_gather(area, faces), reproduce)
@@ -110,12 +111,13 @@ def g_sum(p, area, mode: int = 0, reproduce: bool = True, faces=None,
     global area (fv_grid_utils_nlm.F90:2917-2921): `total`, from
     `global_area`, or summed here when None; reproduce=True takes the
     compensated sum, False the plain `sum`.  On a face decomposition
-    (`faces`, the rank's parallel/faces.FaceGroup; p and area (1, ny, nx))
-    the products are gathered from the six ranks in face order and summed
-    by the same tree, so the sum is bitwise the single process's, whatever
-    the layout.  Each rank holds the sum and passes it on, so the
-    cotangent of `p` is `area` times the sum of the ranks' cotangents of
-    the sum, gathered from the six."""
+    (`faces`, the rank's parallel/faces.FaceGroup; p and area (nf, ny,
+    nx), its tiles) the products are gathered from every rank, assembled
+    into the cube's (6, n, n) in face order and summed by the same tree,
+    so the sum is bitwise the single process's, whatever the layout.
+    Each rank holds the sum and passes it on, so the cotangent of `p` is
+    `area` times the sum of the ranks' cotangents of the sum, gathered
+    from them all."""
     if mode != 1:
         total = None
     elif total is None:

@@ -3,15 +3,16 @@
 Counterpart of fv3jedi_lm_tpu/ops/transport.py (model/tp_core_nlm.F90:
 78-210 `fv_tp_2d`, :1015-1166 `deln_flux`).
 
-Conventions (n = cells per side, ng = halo width, jc = n+2ng):
-  q      (..., 6, jc, jc)   padded, halo-filled scalar
-  crx    (..., 6, jc, n+1)  courant numbers at x-edges (all rows)
-  xfx    (..., 6, jc, n+1)  area flux at x-edges
-  cry    (..., 6, n+1, jc)  courant at y-edges (all columns)
-  yfx    (..., 6, n+1, jc)
-  ra_x   (..., 6, jc, n)
-  ra_y   (..., 6, n, jc)
-returns (fx, fy): (..., 6, n, n+1) and (..., 6, n+1, n).
+Conventions (ny x nx cells of the model's tile, the whole face on one
+process, ng = halo width, jcy = ny+2ng, jcx = nx+2ng):
+  q      (..., nf, jcy, jcx)   padded, halo-filled scalar
+  crx    (..., nf, jcy, nx+1)  courant numbers at x-edges (all rows)
+  xfx    (..., nf, jcy, nx+1)  area flux at x-edges
+  cry    (..., nf, ny+1, jcx)  courant at y-edges (all columns)
+  yfx    (..., nf, ny+1, jcx)
+  ra_x   (..., nf, jcy, nx)
+  ra_y   (..., nf, ny, jcx)
+returns (fx, fy): (..., nf, ny, nx+1) and (..., nf, ny+1, nx).
 """
 
 from __future__ import annotations
@@ -33,7 +34,8 @@ def fv_tp_2d(q, crx, cry, hord, xfx, yfx, grid, topo, ra_x, ra_y,
     of dyn_core_nlm.F90:536-630).  `hord` may be a per-level blend
     `(main, sponge, ksp)` (see ppm.xppm).  The inner (cross) passes of
     hord 10 use scheme 8 (the reference's ord_in)."""
-    n = q.shape[-1] - 2 * NG
+    ny, nx = q.shape[-2] - 2 * NG, q.shape[-1] - 2 * NG
+    T = grid["tile"]
     if isinstance(hord, tuple):
         hm, hs, ksp = hord
         ord_in = (8 if hm == 10 else hm, 8 if hs == 10 else hs, ksp)
@@ -45,24 +47,24 @@ def fv_tp_2d(q, crx, cry, hord, xfx, yfx, grid, topo, ra_x, ra_y,
     area = grid["area"]
 
     q_y = halo.copy_corners(q, topo, 2)
-    fy2 = ppm.yppm(q_y, cry, ord_in, dya)                    # (..., n+1, jc)
+    fy2 = ppm.yppm(q_y, cry, ord_in, dya, T)                 # (..., ny+1, jcx)
     fyy = yfx * fy2
-    q_i = (q[..., NG:NG + n, :] * area[..., NG:NG + n, :]
+    q_i = (q[..., NG:NG + ny, :] * area[..., NG:NG + ny, :]
            + fyy[..., :-1, :] - fyy[..., 1:, :]) / ra_y
-    fx = ppm.xppm(q_i, crx[..., NG:NG + n, :], ord_ou,
-                  dxa[..., NG:NG + n, :])
+    fx = ppm.xppm(q_i, crx[..., NG:NG + ny, :], ord_ou,
+                  dxa[..., NG:NG + ny, :], tile=T)
 
     q_x = halo.copy_corners(q, topo, 1)
-    fx2 = ppm.xppm(q_x, crx, ord_in, dxa)                    # (..., jc, n+1)
+    fx2 = ppm.xppm(q_x, crx, ord_in, dxa, tile=T)            # (..., jcy, nx+1)
     fx1 = xfx * fx2
-    q_j = (q[..., :, NG:NG + n] * area[..., :, NG:NG + n]
+    q_j = (q[..., :, NG:NG + nx] * area[..., :, NG:NG + nx]
            + fx1[..., :, :-1] - fx1[..., :, 1:]) / ra_x
-    fy = ppm.yppm(q_j, cry[..., :, NG:NG + n], ord_ou,
-                  dya[..., :, NG:NG + n])
+    fy = ppm.yppm(q_j, cry[..., :, NG:NG + nx], ord_ou,
+                  dya[..., :, NG:NG + nx], T)
 
     if mfx is not None and mfy is not None:
-        fx = 0.5 * (fx + fx2[..., NG:NG + n, :]) * mfx
-        fy = 0.5 * (fy + fy2[..., :, NG:NG + n]) * mfy
+        fx = 0.5 * (fx + fx2[..., NG:NG + ny, :]) * mfx
+        fy = 0.5 * (fy + fy2[..., :, NG:NG + nx]) * mfy
         if damp_k is not None:
             fx, fy = _deln_flux_masked(damp_k, q_x, fx, fy, grid, topo, mass)
         elif nord is not None and damp_c is not None and mass is not None:
@@ -71,8 +73,8 @@ def fv_tp_2d(q, crx, cry, hord, xfx, yfx, grid, topo, ra_x, ra_y,
                 fx, fy = deln_flux(nord, damp, q_x, fx, fy, grid, topo,
                                    mass=mass)
     else:
-        fx = 0.5 * (fx + fx2[..., NG:NG + n, :]) * xfx[..., NG:NG + n, :]
-        fy = 0.5 * (fy + fy2[..., :, NG:NG + n]) * yfx[..., :, NG:NG + n]
+        fx = 0.5 * (fx + fx2[..., NG:NG + ny, :]) * xfx[..., NG:NG + ny, :]
+        fy = 0.5 * (fy + fy2[..., :, NG:NG + nx]) * yfx[..., :, NG:NG + nx]
         if damp_k is not None:
             fx, fy = _deln_flux_masked(damp_k, q_x, fx, fy, grid, topo, None)
         elif nord is not None and damp_c is not None:
@@ -139,9 +141,9 @@ def _dy_flux(d2, del6_u, sign):
 def deln_flux(nord, damp, q, fx, fy, grid, topo, mass=None):
     """Del-n diffusive fluxes added to (fx, fy) (tp_core_nlm.F90:1015-1166).
 
-    q must already be corner-copied in x.  fx: (..., n, n+1);
-    fy: (..., n+1, n)."""
-    n = q.shape[-1] - 2 * NG
+    q must already be corner-copied in x.  fx: (..., ny, nx+1);
+    fy: (..., ny+1, nx)."""
+    ny, nx = q.shape[-2] - 2 * NG, q.shape[-1] - 2 * NG
     del6_u = grid["del6_u"]
     del6_v = grid["del6_v"]
     rarea = grid["rarea"]
@@ -163,15 +165,15 @@ def deln_flux(nord, damp, q, fx, fy, grid, topo, mass=None):
         d2 = halo.copy_corners(d2, topo, 2)
         fy2 = _dy_flux(d2, del6_u, +1.0)
 
-    fx2_c = fx2[..., NG:NG + n, NG:NG + n + 1]
-    fy2_c = fy2[..., NG:NG + n + 1, NG:NG + n]
+    fx2_c = fx2[..., NG:NG + ny, NG:NG + nx + 1]
+    fy2_c = fy2[..., NG:NG + ny + 1, NG:NG + nx]
     if mass is not None:
         damp2 = 0.5 * damp
-        mxl = mass[..., NG:NG + n, NG - 1:NG + n]
-        mxr = mass[..., NG:NG + n, NG:NG + n + 1]
+        mxl = mass[..., NG:NG + ny, NG - 1:NG + nx]
+        mxr = mass[..., NG:NG + ny, NG:NG + nx + 1]
         fx = fx + damp2 * (mxl + mxr) * fx2_c
-        myl = mass[..., NG - 1:NG + n, NG:NG + n]
-        myr = mass[..., NG:NG + n + 1, NG:NG + n]
+        myl = mass[..., NG - 1:NG + ny, NG:NG + nx]
+        myr = mass[..., NG:NG + ny + 1, NG:NG + nx]
         fy = fy + damp2 * (myl + myr) * fy2_c
     else:
         fx = fx + fx2_c

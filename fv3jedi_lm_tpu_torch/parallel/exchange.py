@@ -30,6 +30,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import NG
+
 
 def _components(maps):
     """The per-output-component maps of a scalar index array (one
@@ -42,63 +44,128 @@ def _components(maps):
     return list(maps)
 
 
-class Plan:
-    """One rank's side of one cross-face map on its FaceGroup `faces`:
-    what it gathers locally, sends to and receives from each other face
-    (see the module's docstring).  The components of a vector pair are
-    read from one pool, the flattened x component followed by the
-    flattened y component, so each message to a face carries both."""
+def _needs(comps, faces, n, rank, shared=False):
+    """What `rank`'s window takes from where, per component c: (its
+    local flat positions that change, the rank each value comes from,
+    the value's index in that rank's pool, the sign), positions in flat
+    order.  A point keeps its value if the map leaves it and it lies in
+    the rank's own tile or in the face's halo; a point of the face the
+    map leaves comes from the tile that owns it; a point the map moves
+    comes from the owner of its source (the rank itself first).  With
+    `shared` "fix" (the shared-edge fix) the tile's north line of a field
+    staggered in y and its east line of one staggered in x come from the
+    tile across it within the face, as the face's come from the face
+    across the cube edge; with "lines" only those lines are taken."""
+    f, y, x = faces.layout
+    nf = faces.nf
+    fb = rank // (y * x)
+    tile = faces.tile(n, rank)
+    dims = [m["idx_same"].shape[-2:] for m in comps]
+    # every rank's window of a component has the same shape
+    wins = [(tile.ny + J - n, tile.nx + I - n) for J, I in dims]
+    sizes = [nf * jt * it for jt, it in wins]
+    offset = np.cumsum([0] + sizes[:-1])
+    out = []
+    for c, m in enumerate(comps):
+        J, I = dims[c]
+        jt, it = wins[c]
+        lf, jj, ii = np.meshgrid(np.arange(nf), np.arange(jt), np.arange(it),
+                                 indexing="ij")
+        F, Jg, Ig = fb * nf + lf, tile.j0 + jj, tile.i0 + ii
+        flat = ((F * J + Jg) * I + Ig).reshape(-1)
+        idx = np.asarray(m["idx_same"], np.int64).reshape(-1)[flat]
+        fo = np.asarray(m["from_other"], bool).reshape(-1)[flat]
+        sign = np.asarray(m["sign"], np.float64).reshape(-1)[flat]
+        moved = (idx != flat) | fo | (sign != 1)
+        sj = J - (n + 2 * NG)
+        si = I - (n + 2 * NG)
+        rj, ri = (Jg - NG).reshape(-1), (Ig - NG).reshape(-1)
+        own = ((rj >= tile.j0) & (rj < tile.j0 + tile.ny + sj)
+               & (ri >= tile.i0) & (ri < tile.i0 + tile.nx + si))
+        in_face = (rj >= 0) & (rj < n + sj) & (ri >= 0) & (ri < n + si)
+        line = np.zeros_like(own)
+        if shared:
+            if sj and not tile.north:
+                line |= own & (rj == tile.j0 + tile.ny)
+            if si and not tile.east:
+                line |= own & (ri == tile.i0 + tile.nx)
+        take = line if shared == "lines" else (
+            moved | (in_face & ~own) | line)
+        src = np.where(fo, np.asarray(m["idx_other"], np.int64
+                                      ).reshape(-1)[flat], idx)
+        sc = np.where(fo, len(comps) - 1 - c, c)
+        pos = np.flatnonzero(take)
+        src, sc, sign = src[pos], sc[pos], sign[pos]
+        Js = np.array([d[0] for d in dims])[sc]
+        Is = np.array([d[1] for d in dims])[sc]
+        sf, r = np.divmod(src, Js * Is)
+        sjj, sii = np.divmod(r, Is)
+        sjj, sii = sjj - NG, sii - NG
+        # the owner: this rank if its tile holds the source, else the
+        # tile whose cells (or staggered line) contain it
+        sfb = sf // nf
+        mine = ((sfb == fb) & (sjj >= tile.j0)
+                & (sjj < tile.j0 + tile.ny + Js - (n + 2 * NG))
+                & (sii >= tile.i0)
+                & (sii < tile.i0 + tile.nx + Is - (n + 2 * NG))
+                & ~line[pos])
+        ty = np.where(mine, tile.j0 // tile.ny,
+                      np.minimum(sjj // tile.ny, y - 1))
+        tx = np.where(mine, tile.i0 // tile.nx,
+                      np.minimum(sii // tile.nx, x - 1))
+        owner = (sfb * y + ty) * x + tx
+        wj = np.array([w[0] for w in wins])[sc]
+        wi = np.array([w[1] for w in wins])[sc]
+        lj = sjj + NG - ty * tile.ny
+        li = sii + NG - tx * tile.nx
+        pool = offset[sc] + ((sf - sfb * nf) * wj + lj) * wi + li
+        out.append((pos, owner, pool, sign))
+    return out, sizes
 
-    def __init__(self, maps, faces, device, dtype):
+
+class Plan:
+    """One rank's side of one cross-face map on its FaceGroup `faces`
+    and its tile of faces of `n` cells: what it gathers locally, sends to
+    and receives from each other rank (see the module's docstring).  The
+    components of a vector pair are read from one pool, the flattened x
+    component followed by the flattened y component, so each message to
+    a rank carries both."""
+
+    def __init__(self, maps, faces, n, device, dtype, shared=False):
         self.faces = faces
-        face = faces.face
+        me = faces.rank
         comps = _components(maps)
-        sizes = [int(np.prod(m["idx_same"].shape[-2:])) for m in comps]
-        offset = np.cumsum([0] + sizes[:-1])
         signed = any((np.asarray(m["sign"]) != 1).any() for m in comps)
-        send = {}       # destination face -> [pool indices]
-        recv = {}       # source face -> [(component, positions)]
+        mine, sizes = _needs(comps, faces, n, me, shared)
+        send = {}       # destination rank -> [pool indices]
+        for d in range(faces.world):
+            if d == me:
+                continue
+            for pos, owner, pool, _ in _needs(comps, faces, n, d, shared)[0]:
+                sel = owner == me
+                if sel.any():
+                    send.setdefault(d, []).append(pool[sel])
+        recv = {}       # source rank -> [(component, count)]
         local_src, pos_all, sign_all = [], [], []
         self.local_n = []
-        for c, m in enumerate(comps):
-            idx = np.asarray(m["idx_same"], np.int64)
-            fo = np.asarray(m["from_other"], bool)
-            sign = np.asarray(m["sign"], np.float64)
-            ident = np.arange(idx.size).reshape(idx.shape)
-            nonid = (idx != ident) | fo | (sign != 1)
-            other = len(comps) - 1 - c
-            src = np.where(fo, np.asarray(m["idx_other"], np.int64), idx)
-            src_comp = np.where(fo, other, c)
-            src_face = src // np.asarray(sizes)[src_comp]
-            pool = offset[src_comp] + src % np.asarray(sizes)[src_comp]
-            nonid, src_face, pool, sign = (a.reshape(6, -1) for a in
-                                           (nonid, src_face, pool, sign))
-            # sends: every face's positions sourced from this face
-            for d in range(6):
-                sel = nonid[d] & (src_face[d] == face)
-                if d != face and sel.any():
-                    send.setdefault(d, []).append(pool[d][sel])
-            here = nonid[face]
-            loc = here & (src_face[face] == face)
-            local_src.append(pool[face][loc])
-            pos = [np.flatnonzero(loc)]
-            sg = [sign[face][loc]]
-            for g in range(6):
-                sel = here & (src_face[face] == g)
-                if g == face or not sel.any():
-                    continue
-                recv.setdefault(g, []).append((c, int(sel.sum())))
-                pos.append(np.flatnonzero(sel))
-                sg.append(sign[face][sel])
+        for c, (pos, owner, pool, sign) in enumerate(mine):
+            loc = owner == me
+            local_src.append(pool[loc])
+            ps, sg = [pos[loc]], [sign[loc]]
+            for g in np.unique(owner[~loc]):
+                sel = owner == g
+                recv.setdefault(int(g), []).append((c, int(sel.sum())))
+                ps.append(pos[sel])
+                sg.append(sign[sel])
             self.local_n.append(int(loc.sum()))
-            pos_all.append(np.concatenate(pos))
+            pos_all.append(np.concatenate(ps))
             sign_all.append(np.concatenate(sg))
 
         def lt(a):
             return torch.as_tensor(np.asarray(a, np.int64), device=device)
 
         self.send = {d: lt(np.concatenate(v)) for d, v in sorted(send.items())}
-        # received message from face g: per component c its count
+        # received message from rank g: per component c its count
         self.recv = {g: dict(v) for g, v in sorted(recv.items())}
         self.local_src = [lt(a) for a in local_src]
         self.pos = [lt(a) for a in pos_all]
@@ -112,7 +179,7 @@ class Plan:
         return flats[0] if len(flats) == 1 else torch.cat(flats, -1)
 
     def apply(self, xs):
-        """The exchanged components of xs, each (..., 1, J, I)."""
+        """The exchanged components of xs, each (..., nf, J, I)."""
         lead = xs[0].shape[:-3]
         flats = [x.reshape(lead + (n,)) for x, n in zip(xs, self.sizes)]
         pool = self._pool(flats)
@@ -188,11 +255,11 @@ class _Exchange(torch.autograd.Function):
         return (None,) + ctx.plan.transpose(gs)
 
 
-def _plan(topo, maps, key, x):
-    hit = topo.plans.get((key, x.device, x.dtype))
+def _plan(topo, maps, key, x, shared=False):
+    hit = topo.plans.get((key, shared, x.device, x.dtype))
     if hit is None:
-        hit = Plan(maps, topo.faces, x.device, x.dtype)
-        topo.plans[(key, x.device, x.dtype)] = hit
+        hit = Plan(maps, topo.faces, topo.n, x.device, x.dtype, shared)
+        topo.plans[(key, shared, x.device, x.dtype)] = hit
     return hit
 
 
@@ -202,8 +269,9 @@ def exchange_scalar(q, topo, idx):
     return _Exchange.apply(_plan(topo, idx, id(idx), q), q)[0]
 
 
-def exchange_pair(x, y, topo, mx, my):
-    """The vector-pair halo update of maps (mx, my) on this rank's face."""
+def exchange_pair(x, y, topo, mx, my, shared=False):
+    """The vector-pair halo update of maps (mx, my) on this rank's tile;
+    `shared`: the shared-edge fix (see `_needs`)."""
     key = (id(mx["idx_same"]), id(mx["sign"]), id(my["idx_same"]),
            id(my["sign"]))
-    return _Exchange.apply(_plan(topo, (mx, my), key, x), x, y)
+    return _Exchange.apply(_plan(topo, (mx, my), key, x, shared), x, y)

@@ -9,9 +9,10 @@ an `index_select` from the input.  The index tensors are built once per
 bitwise equal to the JAX package's.
 
 Field layout: 3-D fields (npz, 6, jdim, idim); 2-D fields (6, jdim, idim);
-on a face decomposition (npz, 1, jdim, idim) and (1, jdim, idim), one face
-per rank, the cross-face updates exchanged point to point
-(parallel/exchange.py) and the per-face corner fills as they are.
+on a decomposition (npz, nf, jdim, idim) and (nf, jdim, idim), a rank's
+faces and tile (parallel/faces.py), every halo point outside the tile
+exchanged point to point (parallel/exchange.py) and the per-face corner
+fills cut to the tile.
 """
 
 from __future__ import annotations
@@ -149,10 +150,10 @@ def _scalar(q, topo, idx):
     return exchange.exchange_scalar(q, topo, idx)
 
 
-def _pair(x, y, topo, mx, my):
+def _pair(x, y, topo, mx, my, shared=False):
     if getattr(topo, "faces", None) is None:
         return _apply_vector_map(x, y, mx, my)
-    return exchange.exchange_pair(x, y, topo, mx, my)
+    return exchange.exchange_pair(x, y, topo, mx, my, shared)
 
 
 def fill_halo_center(q, topo):
@@ -203,9 +204,43 @@ def fill_halo_dgrid_scalar_pair(x, y, topo):
 def fix_shared_edges_dgrid(u, v, topo):
     """Enforce single ownership of shared face-edge wind values
     (mpp_get_boundary(u, v, DGRID_NE) + overwrite of the north u row /
-    east v column)."""
+    east v column); on a decomposition into tiles the same holds for the
+    lines two tiles of a face share: the south (west) tile takes the
+    north (east) tile's."""
     m = topo.edge_fix_maps_dgrid()
-    return _pair(u, v, topo, m["u"], m["v"])
+    return _pair(u, v, topo, m["u"], m["v"], shared="fix")
+
+
+def share_tile_lines(u, v, topo):
+    """The D-grid lines two tiles of a face share (u's north row, v's east
+    column of the south and west tile), taken from the tile across them:
+    the in-face half of fix_shared_edges_dgrid (mpp_get_boundary), which
+    leaves the cube edges as they are.  Nothing on one process or with
+    whole faces."""
+    if getattr(topo, "faces", None) is None or topo.tile.whole:
+        return u, v
+    mx, my = _identity_dgrid(topo.n, topo.ng)
+    return exchange.exchange_pair(u, v, topo, mx, my, shared="lines")
+
+
+def _identity_dgrid(n, ng):
+    """Identity vector maps over the cube's padded D-grid pair, cached
+    (the exchange plans are keyed by their identity)."""
+    key = ("ident_d", n, ng)
+    hit = _DEC_CACHE.get(key)
+    if hit is None:
+        jc = n + 2 * ng
+
+        def ident(jdim, idim):
+            size = 6 * jdim * idim
+            return dict(idx_same=np.arange(size).reshape(6, jdim, idim),
+                        idx_other=np.zeros((6, jdim, idim), np.int64),
+                        from_other=np.zeros((6, jdim, idim), bool),
+                        sign=np.ones((6, jdim, idim)))
+
+        hit = (ident(jc + 1, jc), ident(jc, jc + 1))
+        _DEC_CACHE[key] = hit
+    return hit
 
 
 # ----------------------------------------------------------------------

@@ -163,9 +163,9 @@ class Moist:
         t = _cols(prog["t"])
         delp = _cols(prog["delp"])
         qv = _cols(prog["qv"])
-        n = self.dyn.nx
-        u = _cols(prog["u"][..., :n, :])
-        v = _cols(prog["v"][..., :, :n])
+        ny, nx = prog["t"].shape[-2:]
+        u = _cols(prog["u"][..., :ny, :])
+        v = _cols(prog["v"][..., :, :nx])
 
         ple = (torch.cat([torch.zeros_like(delp[:1]),
                           torch.cumsum(delp, 0)], 0) + self._ptop)
@@ -332,34 +332,34 @@ class Moist:
     def _marshal_in(self, ltraj, pert):
         """Compute-domain pert dict -> column scheme pert (step_tl:428-440):
         theta scaling, qi/ql split by the trajectory fractions."""
-        n = self.dyn.nx
+        ny, nx = pert["t"].shape[-2:]
         p00k = MAPL_P00 ** MAPL_KAPPA
         qi = _cols(pert["qi"])
         ql = _cols(pert["ql"])
         return dict(
             ptt=_cols(pert["t"]) * p00k / ltraj["pk_fv"],
             qvt=_cols(pert["qv"]),
-            ut=_cols(pert["u"][..., :n, :]),
-            vt=_cols(pert["v"][..., :, :n]),
+            ut=_cols(pert["u"][..., :ny, :]),
+            vt=_cols(pert["v"][..., :, :nx]),
             qils=qi * ltraj["ilsf"], qicn=qi * ltraj["icnf"],
             qlls=ql * ltraj["llsf"], qlcn=ql * ltraj["lcnf"],
             cfcn=_cols(pert["cfcn"]))
 
     def _writeback(self, ltraj, prog, y):
         """Column scheme fields `y` -> the compute-domain dict `prog` with
-        t, qv, the winds' (n, n) block, qi, ql and (where `prog` has it)
+        t, qv, the winds' (ny, nx) block, qi, ql and (where `prog` has it)
         cfcn replaced (step_nl:383-390, step_tl:510-520); fields the scheme
         does not touch pass through."""
-        n = self.dyn.nx
+        ny, nx = prog["t"].shape[-2:]
         p00k = MAPL_P00 ** MAPL_KAPPA
         out = dict(prog)
         out["t"] = (y["ptt"] * ltraj["pk_fv"] / p00k).reshape(prog["t"].shape)
         out["qv"] = y["qvt"].reshape(prog["qv"].shape)
         u, v = prog["u"], prog["v"]
-        out["u"] = torch.cat([y["ut"].reshape(u[..., :n, :].shape),
-                              u[..., n:, :]], -2)
-        out["v"] = torch.cat([y["vt"].reshape(v[..., :, :n].shape),
-                              v[..., :, n:]], -1)
+        out["u"] = torch.cat([y["ut"].reshape(u[..., :ny, :].shape),
+                              u[..., ny:, :]], -2)
+        out["v"] = torch.cat([y["vt"].reshape(v[..., :, :nx].shape),
+                              v[..., :, nx:]], -1)
         out["qi"] = y["qi"].reshape(prog["qi"].shape)
         out["ql"] = y["ql"].reshape(prog["ql"].shape)
         if "cfcn" in prog:

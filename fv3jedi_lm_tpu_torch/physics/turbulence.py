@@ -107,11 +107,11 @@ class Turbulence:
             qit = qtot * fqi
             qlt = qtot * (1.0 - fqi)
 
-        # physics sees cell-centered winds: the (n, n) D-wind block
+        # physics sees cell-centered winds: the (ny, nx) D-wind block
         # (fv3jedi_lm_utils_mod.F90:169-176)
-        n = delp.shape[-1]
-        u_c = traj["u"][..., :n, :]
-        v_c = traj["v"][..., :, :n]
+        ny, nx = delp.shape[-2:]
+        u_c = traj["u"][..., :ny, :]
+        v_c = traj["v"][..., :, :nx]
 
         coeffs, zpbl = bl_driver(
             u_c, v_c, th, traj["qv"], pe, qit, qlt,

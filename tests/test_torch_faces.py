@@ -18,8 +18,10 @@ float64, against one process of the port and against the JAX package.
   inputs is within 1e-12 of the JAX package's `step_tl`/`step_ad` (the
   same programs that file compiles, so the JAX compile cache serves
   them).
-* A decomposed model with physics, or its window, raises; a rank's error
-  and a job past its timeout are raised by `run_faces`, the ranks killed.
+* A rank makes a model with the physics, and a layout that does not
+  split the faces raises; a rank's window raises on a whole-cube state;
+  a rank's error and a job past its timeout are raised by `run_faces`,
+  the ranks killed.
 
 The six-rank jobs run through chip_smoke's workers (a spawned rank must
 not import this module, which imports JAX), each killed past TIMEOUT
@@ -272,22 +274,35 @@ def _rank0():
 
 
 def test_decomposed_physics_raises():
+    """A rank of a decomposition runs the physics (a model with them is
+    made on a face's rank); a layout that does not split the faces'
+    cells raises."""
     cfg = LMConfig(dyn=DynConfig(**chip_smoke.PHYS_SMALL_KW), dt=450.0,
-                   do_phy_trb=True)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        LinearModel.create(cfg, device="cpu", faces=_rank0())
+                   do_phy_trb=True, do_phy_mst=1)
+    lm = LinearModel.create(cfg, device="cpu", faces=_rank0())
+    assert lm.nf == 1 and lm._turb is not None and lm._moist is not None
+    odd = LMConfig(dyn=DynConfig(**dict(chip_smoke.PHYS_SMALL_KW, npx=10,
+                                        npy=10)),
+                   dt=450.0, do_phy_trb=True, do_phy_mst=1)
+    with pytest.raises(ValueError, match="does not split"):
+        LinearModel.create(odd, device="cpu",
+                           faces=FaceGroup(0, "gloo", "cpu", 8))
 
 
 @pytest.mark.parametrize("run", ["run_nl", "run_tl", "run_ad"])
 def test_decomposed_window_raises(run):
+    """A rank's window runs on its face's states and raises, naming the
+    shape it holds, on a whole-cube state."""
     lm = LinearModel.create(
         LMConfig(dyn=DynConfig(**MULTIDEVICE_KW), dt=450.0), device="cpu",
         faces=_rank0())
     assert lm.nf == 1 and lm.grid["area"].shape[0] == 1
-    traj = lm.rest_traj()
-    args = {"run_nl": (traj,), "run_tl": ([traj], lm.zero_pert()),
-            "run_ad": ([traj], lm.zero_pert())}[run]
-    with pytest.raises(NotImplementedError, match="item 9"):
+    whole = LinearModel.create(
+        LMConfig(dyn=DynConfig(**MULTIDEVICE_KW), dt=450.0), device="cpu")
+    traj = whole.rest_traj()
+    args = {"run_nl": (traj,), "run_tl": ([traj], whole.zero_pert()),
+            "run_ad": ([traj], whole.zero_pert())}[run]
+    with pytest.raises(ValueError, match="this model holds"):
         getattr(lm, run)(*args)
 
 

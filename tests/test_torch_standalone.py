@@ -269,3 +269,19 @@ def test_create_defaults_to_the_card(monkeypatch):
         tlm.LinearModel.create(cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tlm.LinearModel(cfg)
+
+
+@pytest.mark.parametrize("n", range(1, 9))
+def test_layout_matches_mesh(n):
+    """The port's own layout of n ranks is the JAX package's ('face', 'y',
+    'x') mesh shape (`__graft_entry__._mesh_for`) on conftest's virtual
+    CPU devices."""
+    import jax
+    from __graft_entry__ import _mesh_for
+    from fv3jedi_lm_tpu_torch.parallel.faces import layout
+
+    if jax.device_count() < n:
+        pytest.skip(f"needs {n} JAX devices")
+    mesh, y, x = _mesh_for(n)
+    assert tuple(mesh.devices.shape) == layout(n)
+    assert layout(n)[1:] == (y, x)
