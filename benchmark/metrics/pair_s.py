@@ -1,0 +1,7 @@
+"""pair_s: seconds per TL+AD pair over the whole window (host clock)."""
+
+from metric_math import rate_s
+
+
+def read(ctx):
+    return rate_s(ctx.elapsed_s, ctx.pairs)

@@ -1,0 +1,7 @@
+"""tl_dyn_s: the host timer of the dynamics TL sweep, in the timed pair, s."""
+
+from metric_math import timers_sum
+
+
+def read(ctx):
+    return timers_sum(ctx.timers, ("step_tl.dyn",))
