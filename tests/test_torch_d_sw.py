@@ -71,7 +71,7 @@ def _jax_d_sw():
 
 @pytest.fixture(scope="module")
 def outputs(request):
-    """The JAX package's d_sw (once for the test session, tests/torch_shared.py
+    """The JAX package's d_sw (kept across runs, tests/torch_shared.py
     `shared`) and the port's, numpy."""
     gm = build_grid(NPX, big=1.0e30)
     args = _inputs()

@@ -26,7 +26,7 @@ float64, against one process of the port and against the JAX package.
 The six-rank jobs run through chip_smoke's workers (a spawned rank must
 not import this module, which imports JAX), each killed past TIMEOUT
 seconds.  Each job runs once per test session (tests/torch_shared.py
-`shared`).
+`per_session`), and the JAX reference is kept across runs (`shared`).
 """
 
 import multiprocessing
@@ -52,7 +52,7 @@ from fv3jedi_lm_tpu_torch.config import DynConfig, LMConfig
 from fv3jedi_lm_tpu_torch.grid.topology import get_topology
 from fv3jedi_lm_tpu_torch.lm import LinearModel
 from fv3jedi_lm_tpu_torch.parallel.faces import FaceGroup, run_faces
-from torch_shared import shared
+from torch_shared import per_session, shared
 
 torch.set_num_threads(1)
 
@@ -89,7 +89,7 @@ def _halos():
 
 @pytest.fixture(scope="module")
 def halos(request):
-    return shared(request, _halos)
+    return per_session(request, _halos)
 
 
 @pytest.mark.parametrize("case", sorted(chip_smoke.HALO_CASES))
@@ -180,7 +180,7 @@ def _steps():
 
 @pytest.fixture(scope="module")
 def steps(request):
-    return shared(request, _steps)
+    return per_session(request, _steps)
 
 
 @pytest.mark.parametrize("sweep", ["nl", "tl", "ad"])
@@ -207,9 +207,9 @@ def test_decomposed_dot_product(steps, name):
 
 # ---- the staged TL/AD against the JAX package ----------------------------
 
-def _multidevice():
+def _jax_multidevice():
     """tests/test_multidevice.py's inputs and single-device staged TL/AD
-    (the same programs), and the port's on six ranks."""
+    (the same programs), numpy."""
     lm = JaxLinearModel.create(JaxLMConfig(dyn=JaxDynConfig(**MULTIDEVICE_KW),
                                            dt=450.0))
     traj = lm.rest_traj()
@@ -223,16 +223,20 @@ def _multidevice():
     seed = {k: jnp.asarray(v) for k, v in tl.items()}
     ad = jax.tree_util.tree_map(np.asarray, lm.step_ad(tr, seed))
     as_np = lambda d: {k: np.asarray(v) for k, v in d.items()}
-    ranks = run_faces(chip_smoke.faces_steps,
-                      [(MULTIDEVICE_KW, 450.0, as_np(tr), as_np(pert), tl)],
-                      backend="gloo", device="cpu", timeout=TIMEOUT)
-    return dict(got=chip_smoke.join_results([r[0] for r in ranks]),
-                want=dict(tl=tl, ad=ad))
+    return dict(tr=as_np(tr), pert=as_np(pert), tl=tl, ad=ad)
 
 
 @pytest.fixture(scope="module")
 def multidevice(request):
-    return shared(request, _multidevice)
+    """The JAX package's staged TL/AD (_jax_multidevice) and the port's on
+    six ranks at its inputs."""
+    ref = shared(request, _jax_multidevice)
+    ranks = per_session(request, lambda: run_faces(
+        chip_smoke.faces_steps,
+        [(MULTIDEVICE_KW, 450.0, ref["tr"], ref["pert"], ref["tl"])],
+        backend="gloo", device="cpu", timeout=TIMEOUT))
+    return dict(got=chip_smoke.join_results([r[0] for r in ranks]),
+                want=dict(tl=ref["tl"], ad=ref["ad"]))
 
 
 @pytest.mark.parametrize("sweep", ["tl", "ad"])

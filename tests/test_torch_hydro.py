@@ -26,7 +26,7 @@ so that their programs are those that file compiles (and may find in the
 persistent compilation cache).  The JAX operators are compiled at XLA
 backend optimization level 0 (a shorter compile; only the rounding order
 changes, which the tolerances cover).  Each JAX reference is computed once
-for the test session and returned as numpy (tests/torch_shared.py `shared`).
+and kept across runs as numpy (tests/torch_shared.py `shared`).
 """
 
 import importlib.util
@@ -208,16 +208,22 @@ def _sw_inputs(seed):
             np.zeros(lead + (jc, n + 1)), np.zeros(lead + (n + 1, jc)))
 
 
+C_SW_DT2 = 37.5
+
+
+def _jax_c_sw(jgm, jgrid):
+    """The JAX package's hydrostatic c_sw on _sw_inputs(17), numpy."""
+    return _npy(_jit0(
+        lambda *a: jsw.c_sw(*a, jgrid, jgm.topo, C_SW_DT2, 1, True, NPX),
+        *[jnp.asarray(a) for a in _sw_inputs(17)[:7]]))
+
+
 @pytest.fixture(scope="module")
 def c_sw_out(request, grids):
     gm, grid, jgm, jgrid = grids
-    args = _sw_inputs(17)[:7]
-    dt2 = 37.5
-    want = shared(request, lambda: _npy(_jit0(
-        lambda *a: jsw.c_sw(*a, jgrid, jgm.topo, dt2, 1, True, NPX),
-        *[jnp.asarray(a) for a in args])))
-    got = tsw.c_sw(*[torch.as_tensor(a) for a in args], grid, dt2, 1, NPX,
-                   hydrostatic=True)
+    want = shared(request, lambda: _jax_c_sw(jgm, jgrid))
+    got = tsw.c_sw(*[torch.as_tensor(a) for a in _sw_inputs(17)[:7]], grid,
+                   C_SW_DT2, 1, NPX, hydrostatic=True)
     return dict(zip(C_SW_OUT, want)), dict(zip(C_SW_OUT, got))
 
 
@@ -225,6 +231,16 @@ def c_sw_out(request, grids):
 def test_hydrostatic_c_sw_matches_jax(c_sw_out, key):
     want, got = c_sw_out
     _close(got[key], want[key], 1e-12, key)
+
+
+def test_kept_reference_is_computed_again_bitwise(c_sw_out, grids):
+    """The JAX c_sw that `c_sw_out` read from the references kept across
+    runs (tests/torch_shared.py `shared`), computed again here, is the
+    same bit for bit."""
+    _, _, jgm, jgrid = grids
+    again = dict(zip(C_SW_OUT, _jax_c_sw(jgm, jgrid)))
+    for key, want in c_sw_out[0].items():
+        np.testing.assert_array_equal(again[key], want, err_msg=key)
 
 
 # ---------------------------------------------------------------- d_sw -------
@@ -260,7 +276,7 @@ def d_sw_out(request, grids):
         jkc = jdc._kcoef(jcfg, NPZ, jnp.float64)
         assert h["hord_mt"] == (9, 1, 3)
     assert h == jh
-    hords = (h["hord_mt"], h["hord_vt"], h["hord_tm"], h["hord_dp"])
+    hords = (jh["hord_mt"], jh["hord_vt"], jh["hord_tm"], jh["hord_dp"])
     args = _sw_inputs(11)
     dt = 75.0
     want = shared(request, lambda: _npy(_jit0(

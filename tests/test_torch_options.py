@@ -41,6 +41,7 @@ from fv3jedi_lm_tpu.core import tracer2d as jtr
 from fv3jedi_lm_tpu.grid.device import to_device as jax_to_device
 from fv3jedi_lm_tpu.grid.eta import default_ak_bk
 from fv3jedi_lm_tpu.grid.metrics import build_grid as jax_build_grid
+from fv3jedi_lm_tpu.grid.topology import get_topology as jax_topology
 from fv3jedi_lm_tpu.lm import LinearModel as JaxLinearModel
 from fv3jedi_lm_tpu.ops import a2b_edge as ja2b
 from fv3jedi_lm_tpu.ops import c2l as jc2l
@@ -138,21 +139,34 @@ def _jx(fn, *args):
         compiler_options={"xla_backend_optimization_level": 0})(*args)
 
 
-def _both(jfn, tfn, jargs, targs):
-    """(JAX outputs, port outputs, JAX tape, (port tape, its raw
-    decisions, their ties)) of one operator called on the same inputs,
-    both recording their decisions."""
+def _jax_recorded(jfn, *jargs):
+    """(outputs, tape) of the JAX package's jfn(*jargs) recording its
+    decisions, compiled as one program (_jx), numpy."""
     def rec(*a):
         with jfreeze.recording() as t:
             out = jfn(*a)
         return out, list(t)
 
-    ref, jt = _jx(rec, *jargs)
+    return jax.tree.map(np.asarray, _jx(rec, *jargs))
+
+
+def _port_recorded(tfn, targs):
+    """(outputs, (tape, its raw decisions, their ties)) of the port's
+    tfn(*targs) recording its decisions."""
     mode = _TieMode()
     with freeze.recording() as tt, mode:
         got = tfn(*targs)
         raw = list(tt)        # the decisions before the block packs them
-    return ref, got, jt, (tt, raw, mode)
+    return got, (tt, raw, mode)
+
+
+def _both(jfn, tfn, jargs, targs):
+    """(JAX outputs, port outputs, JAX tape, (port tape, its raw
+    decisions, their ties)) of one operator called on the same inputs,
+    both recording their decisions."""
+    ref, jt = _jax_recorded(jfn, *jargs)
+    got, tt = _port_recorded(tfn, targs)
+    return ref, got, jt, tt
 
 
 def _vjp_anomaly(fn, args):
@@ -265,14 +279,15 @@ def test_map1_ppm_kord(kord, iv):
                  (pe1, q, pe2, qs))
 
 
-def test_mapn_matches_per_tracer_map1():
+def test_mapn_matches_per_tracer_map1(request):
     km, ncol, nq = 12, 30, 6
     pe1, pe2 = _coords(km, ncol, 0)
     q = np.abs(_rng(1).standard_normal((nq, km, ncol))) * 1e-3
     got = tmapz.mapn_tracer(torch.as_tensor(pe1), torch.as_tensor(q),
                             torch.as_tensor(pe2), 8, q_min=0.0)
-    ref = _jx(lambda a, b, c: jmapz.mapn_tracer(a, b, c, 8, q_min=0.0),
-              jnp.asarray(pe1), jnp.asarray(q), jnp.asarray(pe2))
+    ref = shared(request, lambda: np.asarray(_jx(
+        lambda a, b, c: jmapz.mapn_tracer(a, b, c, 8, q_min=0.0),
+        jnp.asarray(pe1), jnp.asarray(q), jnp.asarray(pe2))))
     _close(got, ref)
     for iq in range(nq):
         want = tmapz.map1_q2(torch.as_tensor(pe1), torch.as_tensor(q[iq]),
@@ -546,8 +561,9 @@ def test_rayleigh(grids, variant):
 
 
 @pytest.mark.parametrize("ndif", [1, 2])
-def test_update_dz_d_damping(grids, ndif):
-    """update_dz_d with its del-n damping (nh_utils_nlm.F90:183-295)."""
+def test_update_dz_d_damping(request, grids, ndif):
+    """update_dz_d with its del-n damping (nh_utils_nlm.F90:183-295); the
+    JAX half kept across runs on the JAX package's topology."""
     jgrid, grid, topo = grids
     r = _rng(50 + ndif)
     km = NZ
@@ -562,14 +578,15 @@ def test_update_dz_d_damping(grids, ndif):
     xfx, yfx = 0.3 * area * crx, 0.3 * area * cry
     damp = np.full((km + 1, 1, 1, 1), (0.1 * grid["da_min"]) ** (ndif + 1))
     args = (zh, crx, cry, xfx, yfx, damp)
-    ref, got, jt, tt = _both(
+    ref, jt = shared(request, lambda *a: _jax_recorded(
         lambda zh, a, b, c, d, e: jnh.update_dz_d(
-            75.0, dp0, jnp.asarray(zs), zh, a, b, c, d, 9, jgrid, topo, NPX,
-            damp=e, ndif=ndif),
+            75.0, dp0, jnp.asarray(zs), zh, a, b, c, d, 9, jgrid,
+            jax_topology(NPX), NPX, damp=e, ndif=ndif),
+        *[jnp.asarray(x) for x in a]), *args)
+    got, tt = _port_recorded(
         lambda zh, a, b, c, d, e: tnh.update_dz_d(
             75.0, dp0, torch.as_tensor(zs), zh, a, b, c, d, 9, grid, topo,
-            damp=e, ndif=ndif),
-        [jnp.asarray(x) for x in args], [torch.as_tensor(x) for x in args])
+            damp=e, ndif=ndif), [torch.as_tensor(x) for x in args])
     _close(got, ref)
     assert _tapes_equal(tt, jt) > 0
     _vjp_anomaly(lambda zh, a, b, c, d, e: tnh.update_dz_d(
@@ -578,8 +595,9 @@ def test_update_dz_d_damping(grids, ndif):
 
 
 @pytest.mark.parametrize("nord_tr", [0, 1])
-def test_tracer_2d_trdm2(grids, nord_tr):
-    """tracer_2d with the del-n damping of its first sub-cycle (trdm2)."""
+def test_tracer_2d_trdm2(request, grids, nord_tr):
+    """tracer_2d with the del-n damping of its first sub-cycle (trdm2); the
+    JAX half kept across runs on the JAX package's topology."""
     jgrid, grid, topo = grids
     r = _rng(60 + nord_tr)
     area = float(np.median(_np(grid["area"])[:, 3:-3, 3:-3]))
@@ -592,12 +610,14 @@ def test_tracer_2d_trdm2(grids, nord_tr):
     mfy = 50.0 * area * r.uniform(-1, 1, (NZ, 6, N + 1, N))
     kw = dict(npx=NPX, npy=NPX, npz=NZ, nord_tr=nord_tr, trdm2=0.1)
     flx = (dp1, mfx, mfy, cx, cy)
-    ref, got, jt, tt = _both(
-        lambda q, *f: jtr.tracer_2d(q, *f, jgrid, topo, JaxDynConfig(**kw),
-                                    NPX, 8, nord_tr=nord_tr, trdm=0.1),
+    ref, jt = shared(request, lambda q, flx: _jax_recorded(
+        lambda q, *f: jtr.tracer_2d(q, *f, jgrid, jax_topology(NPX),
+                                    JaxDynConfig(**kw), NPX, 8,
+                                    nord_tr=nord_tr, trdm=0.1),
+        [jnp.asarray(x) for x in q], *[jnp.asarray(x) for x in flx]), q, flx)
+    got, tt = _port_recorded(
         lambda q, *f: ttr.tracer_2d(q, *f, grid, topo, DynConfig(**kw), NPX,
                                     8, nord_tr=nord_tr, trdm=0.1),
-        [[jnp.asarray(x) for x in q]] + [jnp.asarray(x) for x in flx],
         [[torch.as_tensor(x) for x in q]] + [torch.as_tensor(x)
                                              for x in flx])
     _close(got, ref)
@@ -690,17 +710,22 @@ def _case(name):
         kw, dt, kind, _ = CASES[name]
         lm = LinearModel.create(LMConfig(dyn=DynConfig(**kw), dt=dt),
                                 device="cpu")
-        jlm = JaxLinearModel.create(JaxLMConfig(dyn=JaxDynConfig(**kw),
-                                                dt=dt))
-        _MODELS[name] = (lm, jlm, _traj(lm, kind))
+        _MODELS[name] = (lm, _traj(lm, kind))
     return _MODELS[name]
 
 
+def _jax_step_nl(name, traj):
+    """The JAX package's step_nl of the option `name`'s model, numpy."""
+    kw, dt, _, _ = CASES[name]
+    jlm = JaxLinearModel.create(JaxLMConfig(dyn=JaxDynConfig(**kw), dt=dt))
+    out = jlm.step_nl({k: jnp.asarray(v) for k, v in traj.items()})
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
 @pytest.mark.parametrize("name", list(CASES))
-def test_step_nl_matches_jax(name):
-    lm, jlm, tr = _case(name)
-    ref = jlm.step_nl({k: jnp.asarray(v) for k, v in
-                       traj_to_numpy(tr).items()})
+def test_step_nl_matches_jax(request, name):
+    lm, tr = _case(name)
+    ref = shared(request, _jax_step_nl, name, traj_to_numpy(tr))
     got = lm.step_nl(tr)
     keys = lm.prog_3d + (("omga",) if name == "omega" else ())
     for k in keys:
@@ -710,7 +735,7 @@ def test_step_nl_matches_jax(name):
 
 @pytest.mark.parametrize("name", [c for c in CASES if CASES[c][3]])
 def test_dot_product_identity(name):
-    lm, _, tr = _case(name)
+    lm, tr = _case(name)
     dx, dy = chip_smoke.rand_pert(lm, 1), chip_smoke.rand_pert(lm, 2)
     lhs = chip_smoke.dot(lm.step_tl(tr, dx), dy, lm.prog_3d)
     rhs = chip_smoke.dot(dx, lm.step_ad(tr, dy), lm.prog_3d)
@@ -734,7 +759,7 @@ def test_beta_nsplit1_matches_beta0():
 def test_consv_te_changes_the_tl():
     """tests/test_energetics.py: the energy fixer couples every column,
     so the TL with consv_te differs from the TL without it."""
-    lm, _, tr = _case("consv_te")
+    lm, tr = _case("consv_te")
     lm0 = LinearModel.create(LMConfig(dyn=DynConfig(**ENERGETICS_KW),
                                       dt=450.0), device="cpu")
     dx = chip_smoke.rand_pert(lm, 1)
@@ -746,21 +771,19 @@ def test_consv_te_changes_the_tl():
 def production(request):
     """step_tl/step_ad of both packages with the production options at
     ENERGETICS_KW from one spun-up trajectory, and their tapes (the JAX
-    package's once for the test session, numpy)."""
+    package's kept across runs, numpy)."""
     kw = dict(ENERGETICS_KW, **PRODUCTION)
     lm = LinearModel.create(LMConfig(dyn=DynConfig(**kw), dt=450.0),
                             device="cpu")
     tr = chip_smoke.spun_up(lm, 2, moist=True)
     dx, dy = chip_smoke.rand_pert(lm, 1), chip_smoke.rand_pert(lm, 2)
 
-    def compute():
+    def compute(traj, dx, dy):
         jlm = JaxLinearModel.create(JaxLMConfig(dyn=JaxDynConfig(**kw),
                                                 dt=450.0))
-        jtr = {k: jnp.asarray(v) for k, v in traj_to_numpy(tr).items()}
-        ref_tl = jlm.step_tl(jtr, {k: jnp.asarray(v.numpy())
-                                   for k, v in dx.items()})
-        ref_ad = jlm.step_ad(jtr, {k: jnp.asarray(v.numpy())
-                                   for k, v in dy.items()})
+        J = lambda d: {k: jnp.asarray(v) for k, v in d.items()}
+        ref_tl = jlm.step_tl(J(traj), J(dx))
+        ref_ad = jlm.step_ad(J(traj), J(dy))
         (_, (_, jtapes, _, _)), = jlm._traj_cache.values()
         sub0 = jax.tree.map(lambda x: np.asarray(x[0]),
                             tuple(jtapes["sub"][0]))
@@ -770,7 +793,8 @@ def production(request):
                                post=jax.tree.map(np.asarray,
                                                  list(jtapes["post"][0]))))
 
-    ref = shared(request, compute)
+    npy = lambda d: {k: v.numpy() for k, v in d.items()}
+    ref = shared(request, compute, traj_to_numpy(tr), npy(dx), npy(dy))
     tl, ad = lm.step_tl(tr, dx), lm.step_ad(tr, dy)
     _, ptapes, _, _ = lm._ckpts(tr)
     port_tapes = dict(sub0=list(ptapes["sub"][0][0]), post=ptapes["post"][0])

@@ -71,8 +71,7 @@ def _jax_nl():
 @pytest.fixture(scope="module")
 def nl_pair(request):
     """step_nl of both packages at tests/test_moist.py's `lm` and `traj`
-    (the JAX package's once for the test session, tests/torch_shared.py
-    `shared`)."""
+    (the JAX package's kept across runs, tests/torch_shared.py `shared`)."""
     want, first = shared(request, _jax_nl)
     lm = port_model(False, 1)
     tr = traj_from_numpy(lm, first)

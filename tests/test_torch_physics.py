@@ -21,8 +21,8 @@ tests/test_turbulence.py's surface fields, all from numpy seeds.  The JAX
 moist programs are those of tests/test_moist.py's models (same
 configuration, shapes and argument structure), so that they may come from
 the persistent compilation cache that file fills; everything else of the
-JAX package runs eagerly.  Each JAX reference is computed once for the
-test session and returned as numpy (tests/torch_shared.py `shared`).
+JAX package runs eagerly.  Each JAX reference is computed once and kept
+across runs as numpy (tests/torch_shared.py `shared`).
 """
 
 import jax
@@ -385,11 +385,11 @@ def rase_pair(request, port_ltraj):
     args = (lt["kcbl"], lt["wgt0"], lt["wgt1"], lt["frland"], lt["ts"],
             lt["ptt"], lt["qvt"], lt["ut"], lt["vt"], lt["co_auto"],
             lt["cnv_ple"])
-    want = shared(request, lambda: {k: np.asarray(v) for k, v in zip(
-        RASE_OUT, jcv.rase(DT, m.icmin, m.sige,
-                           *[jnp.asarray(a) for a in args], m.rasparams,
-                           jnp.asarray(lt["seedras"]),
-                           with_winds=request.param))})
+    want = shared(request, lambda icmin, sige, args, params, seed: {
+        k: np.asarray(v) for k, v in zip(RASE_OUT, jcv.rase(
+            DT, icmin, sige, *[jnp.asarray(a) for a in args], params,
+            jnp.asarray(seed), with_winds=request.param))},
+        m.icmin, m.sige, args, m.rasparams, lt["seedras"])
     got = tcv.rase(DT, m.icmin, m.sige, *[_t(a) for a in args],
                    m.rasparams, _t(lt["seedras"]), with_winds=request.param)
     return (want,
@@ -420,9 +420,10 @@ def cloud_pair(request, port_ltraj):
             lt["prc3_c"], lt["updf_c"], lt["qilst"], lt["qllst"],
             lt["qicnt"], lt["qlcnt"], np.zeros_like(lt["qilst"]),
             lt["cfcnt"], lt["frland"], lt["khu"], lt["khl"])
-    want = shared(request, lambda: {k: np.asarray(v) for k, v in zip(
-        CLOUD_OUT, jcl.cloud_driver(DT, *[jnp.asarray(a) for a in args],
-                                    m.cloudparams, None, request.param))})
+    want = shared(request, lambda args, params: {
+        k: np.asarray(v) for k, v in zip(CLOUD_OUT, jcl.cloud_driver(
+            DT, *[jnp.asarray(a) for a in args], params, None,
+            request.param))}, args, m.cloudparams)
     got = tcl.cloud_driver(DT, *[_t(a) for a in args], m.cloudparams, None,
                            request.param)
     return (want,

@@ -65,8 +65,8 @@ def _jax_refs():
 
 @pytest.fixture(scope="module")
 def jax_refs(request):
-    """The JAX references, computed once for the test session
-    (tests/torch_shared.py `shared`): {(case, ref): (pe, w, dz)}."""
+    """The JAX references, kept across runs (tests/torch_shared.py
+    `shared`): {(case, ref): (pe, w, dz)}."""
     return shared(request, _jax_refs)
 
 

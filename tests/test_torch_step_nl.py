@@ -80,8 +80,8 @@ def _jax_steps():
 
 @pytest.fixture(scope="module")
 def steps(request):
-    """One JAX step (once for the test session, tests/torch_shared.py
-    `shared`) and one port step of each input state."""
+    """One JAX step (kept across runs, tests/torch_shared.py `shared`) and
+    one port step of each input state."""
     states, refs = shared(request, _jax_steps)
     lm = LinearModel.create(CFG, device="cpu")
     out = {}

@@ -23,9 +23,10 @@ process of the port and against the JAX package.
 
 Each layout runs once, in one spawn of its ranks through chip_smoke's
 workers (a spawned rank must not import this module, which imports JAX),
-while this process computes the references and the JAX package's staged
-TL/AD; all of it runs once per test session (tests/torch_shared.py
-`shared`).
+while this process computes the references; all of it runs once per test
+session (tests/torch_shared.py `per_session`).  The JAX package's staged
+TL/AD runs beside it in a process of its own, and is kept across runs
+(`shared`).
 """
 
 import multiprocessing
@@ -45,7 +46,7 @@ from fv3jedi_lm_tpu.lm import LinearModel as JaxLinearModel
 from fv3jedi_lm_tpu_torch.grid.topology import get_topology
 from fv3jedi_lm_tpu_torch.lm import LinearModel
 from fv3jedi_lm_tpu_torch.parallel.faces import layout, run_faces
-from torch_shared import shared
+from torch_shared import per_session, shared
 
 torch.set_num_threads(1)
 
@@ -85,9 +86,10 @@ def _multidevice_case():
 
 def _jax_multidevice(case):
     """The JAX package's staged TL/AD (the programs tests/test_multidevice
-    .py compiles) on `case`.  Run in a process of its own (its tracing
-    would share this process's interpreter lock with the port's eager
-    references), it sets up JAX as the tests do, by tests/conftest.py."""
+    .py compiles) on `case`, numpy.  Run in a process of its own (its
+    tracing would share this process's interpreter lock with the port's
+    eager references), it sets up JAX as the tests do, by
+    tests/conftest.py."""
     import conftest  # noqa: F401
 
     _, dt, tr, pert, cot = case
@@ -99,13 +101,12 @@ def _jax_multidevice(case):
     return dict(tl=tl, ad=ad)
 
 
-def _all():
+def _all(md_case):
     """Every spawn of the file and one process's results: the spawns of
     both layouts (chip_smoke.tiles_small: the exchanges, the steps, the
     physics and the window on every rank; on (2, 2, 2) also the staged
-    TL/AD at tests/test_multidevice.py's configuration) and the JAX
-    package's staged TL/AD run in threads while this process computes
-    the references."""
+    TL/AD of `md_case`) run in threads while this process computes the
+    references."""
     kws = {name: chip_smoke.TLAD_SMALL[name] for name in STEP_NAMES}
     trajs = {name: chip_smoke.tlad_traj(kw) for name, kw in kws.items()}
     cases = [(kw, 450.0, trajs[name], *chip_smoke.perts_numpy(kw))
@@ -113,7 +114,6 @@ def _all():
     phys_case = chip_smoke.phys_case()
     wkw = chip_smoke.TLAD_SMALL["hydrostatic"]
     wdx = chip_smoke.perts_numpy(wkw, (3,))[0]
-    md_case = _multidevice_case()
     kw = dict(backend="gloo", device="cpu", timeout=TIMEOUT)
     def spawn(ranks):
         return pool.submit(
@@ -122,9 +122,7 @@ def _all():
             {mode: phys_case for mode in MODES},
             (wkw, trajs["hydrostatic"], wdx), ranks=ranks, **kw)
 
-    with ThreadPoolExecutor(2) as pool, ProcessPoolExecutor(
-            1, mp_context=multiprocessing.get_context("spawn")) as jax_pool:
-        jax_job = jax_pool.submit(_jax_multidevice, md_case)
+    with ThreadPoolExecutor(2) as pool:
         jobs = {ranks: spawn(ranks) for ranks in sorted(LAYOUTS)}
         inputs = chip_smoke.halo_inputs(HALO_NPX, HALO_SEED)
         want = dict(
@@ -139,7 +137,6 @@ def _all():
                                    device="cpu"),
                 trajs["hydrostatic"], wdx))
         runs = {ranks: job.result() for ranks, job in jobs.items()}
-        jax_md = jax_job.result()
     out = {}
     for ranks, results in runs.items():
         out[ranks] = dict(
@@ -156,15 +153,29 @@ def _all():
             window=dict(got=chip_smoke.join_results([r["window"]
                                                    for r in results]),
                         want=want["window"]))
-    out["multidevice"] = dict(
-        got=chip_smoke.join_results([r["steps"][2] for r in runs[8]]),
-        want=jax_md)
+    out["multidevice"] = chip_smoke.join_results([r["steps"][2]
+                                                 for r in runs[8]])
     return out
+
+
+def _jax_apart(case):
+    """_jax_multidevice(case) in a spawned process."""
+    with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context(
+            "spawn")) as pool:
+        return pool.submit(_jax_multidevice, case).result()
 
 
 @pytest.fixture(scope="module")
 def results(request):
-    return shared(request, _all)
+    """_all's results, and the JAX package's staged TL/AD (_jax_multidevice,
+    kept across runs) at the case of the port's (2, 2, 2) staged TL/AD,
+    computed beside them."""
+    md_case = _multidevice_case()
+    with ThreadPoolExecutor(1) as pool:
+        want = pool.submit(shared, request, _jax_apart, md_case)
+        out = per_session(request, lambda: _all(md_case))
+        out["multidevice"] = dict(got=out["multidevice"], want=want.result())
+    return out
 
 
 @pytest.fixture(scope="module", params=sorted(LAYOUTS), ids=lambda r:

@@ -17,9 +17,9 @@
   under `torch.autograd.set_detect_anomaly` (no in-place write into a
   tensor autograd saved).
 
-The JAX reference is built once for the test session (tests/torch_shared.py
-`shared`) and returned as numpy.  Its tests come last, so that the port's
-own tests run before the long JAX compile.
+The JAX reference is built once and kept across runs as numpy
+(tests/torch_shared.py `shared`).  Its tests come last, so that the port's
+own tests run before the long JAX compile when it is built.
 """
 
 import numpy as np

@@ -58,25 +58,24 @@ def _close(got, ref, tol, what):
 @pytest.fixture(scope="module")
 def window(request):
     """Both packages' window: the states, run_tl(rand_pert(1)) and
-    run_ad(rand_pert(2)) (the JAX package's once for the test session,
-    numpy: tests/torch_shared.py `shared`)."""
+    run_ad(rand_pert(2)) (the JAX package's kept across runs, numpy:
+    tests/torch_shared.py `shared`)."""
     lm = _model()
     tr0 = _traj0(lm)
     dx, dy = chip_smoke.rand_pert(lm, 1), chip_smoke.rand_pert(lm, 2)
 
-    def compute():
+    def compute(traj0, dx, dy):
         jlm = JaxLinearModel.create(JaxLMConfig(
             dyn=JaxDynConfig(**WINDOW_KW), dt=450.0, nt=NT, saveltraj=True))
-        jtrajs = jlm.run_nl({k: jnp.asarray(v)
-                             for k, v in traj_to_numpy(tr0).items()})
-        jtl = jlm.run_tl(jtrajs, {k: jnp.asarray(v.numpy())
-                                  for k, v in dx.items()})
-        jad = jlm.run_ad(jtrajs, {k: jnp.asarray(v.numpy())
-                                  for k, v in dy.items()})
+        J = lambda d: {k: jnp.asarray(v) for k, v in d.items()}
+        jtrajs = jlm.run_nl(J(traj0))
+        jtl, jad = jlm.run_tl(jtrajs, J(dx)), jlm.run_ad(jtrajs, J(dy))
         npy = lambda d: {k: np.asarray(v) for k, v in d.items()}
         return [npy(t) for t in jtrajs], npy(jtl), npy(jad)
 
-    jtrajs, jtl, jad = shared(request, compute)
+    npy = lambda d: {k: v.numpy() for k, v in d.items()}
+    jtrajs, jtl, jad = shared(request, compute, traj_to_numpy(tr0), npy(dx),
+                              npy(dy))
     trajs = lm.run_nl(tr0)
     tl, ad = lm.run_tl(trajs, dx), lm.run_ad(trajs, dy)
     return dict(lm=lm, trajs=trajs, jtrajs=jtrajs, tl=(tl, jtl),
